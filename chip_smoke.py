@@ -1,0 +1,352 @@
+#!/usr/bin/env python3
+"""On-card smoke run of deepim_tpu_torch, the PyTorch/CUDA port.
+
+    python3 chip_smoke.py        # one CUDA device, nvcc on PATH or in $CUDA_HOME
+
+Phases (each raises on failure; the script then exits non-zero):
+  1. device and build: the card's name and power limit, torch's CUDA
+     version and TF32 settings (both set off: the port's numbers are fp32),
+     and the nvcc build of csrc/raster.cu;
+  2. each raster kernel against its plain PyTorch twin on the card, on the
+     kernel inputs of one render of the main path's scenes (480x640;
+     20,480-face icospheres for csr_raster, the 320-face scene for
+     tile_raster): hit masks and face ids exact, q to 1e-6, rgb to 5e-3;
+     kernel and twin times (CUDA events, median);
+  3. the main path on the CSR kernel: refine(), 4 iterations, batch 16,
+     20,480-face meshes, FAST_TEST network (encoder + SE(3) head), seeded
+     random weights with a small nonzero translation head, one warm-up and
+     five chained calls;
+  4. the main path on the dense kernel: the 320-face scene, batch 2, the
+     full network (flow and mask heads), the same protocol;
+  5. where one call's device time goes on each path (torch.profiler: time
+     by kernel family, the device's idle share, the top kernels);
+  6. small-input reference checks: the card's renders and refinement equal
+     the CPU path (the one the tests hold to the JAX package).
+Launch counters are zeroed just before each main-path phase and read just
+after it.  The second-to-last line is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from deepim_tpu_torch.engine.refine import Observation, refine  # noqa: E402
+from deepim_tpu_torch.engine.scene import LINEMOD_K, build_scene  # noqa: E402
+from deepim_tpu_torch.models.flownet import FlowNetDeepIM  # noqa: E402
+from deepim_tpu_torch.ops.masks import box_fill  # noqa: E402
+from deepim_tpu_torch.render import raster_kernels as rk  # noqa: E402
+from deepim_tpu_torch.render.rasterizer import KERNELS, kernel_inputs, rasterize  # noqa: E402
+
+H, W = 480, 640
+N_CALLS = 5
+# Bound model (NVIDIA's H100 SXM data sheet): device memory at
+# 3.35 TB/s, fp32 outside the tensor cores at 67 TFLOP/s.  A face-pixel
+# evaluation is 22 fp32 operations (2 subtractions for dx/dy, 3 edge planes
+# 10, the 1/z plane 4, its clamp 2, the inside test 3, the depth test 1).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+OPS_PER_PAIR = 22
+REC_BYTES = 4 * rk.REC_WIDTH
+PLAIN = {"csr_raster": rk.csr_raster_plain, "tile_raster": rk.tile_raster_plain}
+REPLACES = {
+    "csr_raster": "deepim_tpu/render/pallas_raster.py:117 (_csr_chunk_kernel, slots8)",
+    "tile_raster": "deepim_tpu/render/pallas_raster.py:66 (_tile_kernel)",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    if not out:
+        raise RuntimeError("nvidia-smi printed no GPU")
+    return out[0].strip()
+
+
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Median per-call time in ms, each call bracketed by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(name: str, args) -> tuple[float, str, dict]:
+    """Least time for this launch's work: bytes it must move (each face
+    record once per tile it is binned to, the lists, the output) at
+    3.35 TB/s, or its face-pixel operations at 67 TFLOP/s."""
+    if name == "csr_raster":
+        _, _, _, seg_count, _, _, pack, _ = args
+        n_items, pix = seg_count.numel(), rk.CSR_TILE_PIXELS
+        units = int(seg_count.sum())
+        faces = units * pack
+        nbytes = faces * REC_BYTES + units * 4 + n_items * (3 * 4 + 8) + n_items * 5 * pix * 4
+    else:
+        _, _, counts, _, th, tw = args
+        n_items, pix = counts.numel(), th * tw
+        faces = int(counts.sum())
+        nbytes = faces * (REC_BYTES + 4) + n_items * (4 + 8) + n_items * 4 * pix * 4
+    ops = faces * pix * OPS_PER_PAIR
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    info = {"work_items": n_items, "face_tile_pairs": faces, "bytes": nbytes, "ops": ops}
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), info
+
+
+def check_kernel(name: str, args, card: str) -> dict:
+    """Kernel vs plain twin on the same card inputs; times both."""
+    out = KERNELS[name](*args)
+    ref = PLAIN[name](*args)
+    torch.cuda.synchronize()
+    q, q_ref = out[:, 0], ref[:, 0]
+    hit = q > 0
+    if not torch.equal(hit, q_ref > 0):
+        raise AssertionError(f"{name}: hit masks differ in {int((hit != (q_ref > 0)).sum())} px")
+    rgb_rows = slice(2, 5) if name == "csr_raster" else slice(1, 4)
+    if name == "csr_raster" and not torch.equal(out[:, 1], ref[:, 1]):
+        raise AssertionError(f"{name}: face ids differ in {int((out[:, 1] != ref[:, 1]).sum())} px")
+    hit3 = hit[:, None].expand_as(out[:, rgb_rows])
+    q_err = float((q - q_ref)[hit].abs().max()) if hit.any() else 0.0
+    qs = torch.where(hit, q, torch.ones_like(q))[:, None]
+    rgb_err = float(((out[:, rgb_rows] - ref[:, rgb_rows]) / qs)[hit3].abs().max()) if hit.any() else 0.0
+    raw_err = float((out - ref)[hit[:, None].expand_as(out)].abs().max()) if hit.any() else 0.0
+    if q_err > 1e-6 or rgb_err > 5e-3:
+        raise AssertionError(f"{name}: q err {q_err}, rgb err {rgb_err}")
+    ms = cuda_ms(lambda: KERNELS[name](*args), reps=20)
+    plain_ms = cuda_ms(lambda: PLAIN[name](*args), reps=10, warmup=1)
+    b_ms, b_by, info = bound(name, args)
+    log(f"[{name}] vs plain twin: {int(hit.sum())} hit px, max |dq| {q_err:.3g}, max |drgb| {rgb_err:.3g}, "
+        f"max raw err {raw_err:.3g}; kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}; {info}) [{card}]")
+    return {"max_abs_err": raw_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def make_model(pred_heads: bool, seed: int, dev, hw=(H, W)) -> FlowNetDeepIM:
+    """Seeded random weights; a small nonzero translation head so the
+    refined poses move."""
+    g = torch.Generator().manual_seed(seed)
+    model = FlowNetDeepIM(input_hw=hw, pred_flow=pred_heads, pred_mask=pred_heads, generator=g,
+                          device=dev)
+    with torch.no_grad():
+        model.trans.weight.copy_(torch.randn(model.trans.weight.shape, generator=g) * 1e-3)
+    return model.eval()
+
+
+def drive_main_path(label: str, scene, model, dev, card: str, expect: str, min_per_call: int) -> dict:
+    """Chained refine() calls with the launch counters zeroed just before
+    and read just after; checks poses and which kernel ran."""
+    k = torch.from_numpy(LINEMOD_K).to(dev)
+    obs = Observation(scene.image, box_fill(scene.mask), None, None, k)
+    b = scene.image.shape[0]
+    pose = torch.from_numpy(scene.pose0).to(dev)
+    poses, times, dropped = [pose], [], []
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    for i in range(1 + N_CALLS):  # call 0 is the warm-up
+        t0 = time.perf_counter()
+        pose, _, stats = refine(model, obs, scene.meshes, pose, scene.ecfg, with_stats=True, device=dev)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+        poses.append(pose)
+        dropped.append(stats["raster_dropped"])
+    counts = {"csr_raster": rk.csr_raster.launches, "tile_raster": rk.tile_raster.launches}
+    other = "tile_raster" if expect == "csr_raster" else "csr_raster"
+    calls = 1 + N_CALLS
+    if counts[expect] < min_per_call * calls:
+        raise AssertionError(f"{label}: {expect} launched {counts[expect]} times, want >= {min_per_call * calls}")
+    if counts[other]:
+        raise AssertionError(f"{label}: {other} launched {counts[other]} times on this path")
+    stack = torch.stack(poses).cpu().numpy()
+    if not np.isfinite(stack).all():
+        raise AssertionError(f"{label}: non-finite poses")
+    r = stack[-1][:, :, :3]
+    orth = float(np.abs(r @ r.transpose(0, 2, 1) - np.eye(3)).max())
+    if orth > 1e-4:
+        raise AssertionError(f"{label}: rotations not orthonormal ({orth})")
+    deltas = [float(np.abs(stack[i + 1] - stack[i]).max()) for i in range(len(stack) - 1)]
+    if min(deltas) == 0.0:
+        raise AssertionError(f"{label}: consecutive chained poses identical")
+    n_drop = int(torch.stack(dropped).sum())
+    if n_drop:
+        raise AssertionError(f"{label}: CSR binning dropped {n_drop} face-tile pairs")
+    ms = [t * 1e3 for t in times]
+    mean_s = sum(times) / len(times)
+    log(f"[{label}] refine x{scene.ecfg.num_iters} iters, batch {b}: {statistics.median(ms):.2f} ms/call median "
+        f"(min {min(ms):.2f}, max {max(ms):.2f}), {b / mean_s:.2f} frames/s; launches {counts}; "
+        f"orthonormality err {orth:.2g}; min pose delta {min(deltas):.3g} [{card}]")
+    return counts
+
+
+_FAMILIES = (
+    ("raster kernels", ("csr_raster", "tile_raster")),
+    ("convolutions", ("conv", "xmma", "fprop", "implicit", "winograd", "cudnn", "dgrad")),
+    ("matmuls", ("gemm", "cutlass", "cublas", "bmm")),
+    ("sort/scan", ("sort", "radix", "scan")),
+)
+
+
+def breakdown(label: str, scene, model, dev, card: str) -> None:
+    """Device time of one refine() call by kernel family (torch.profiler),
+    the device's idle share of the call's wall time, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k = torch.from_numpy(LINEMOD_K).to(dev)
+    obs = Observation(scene.image, box_fill(scene.mask), None, None, k)
+    pose = torch.from_numpy(scene.pose0).to(dev)
+    refine(model, obs, scene.meshes, pose, scene.ecfg, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        refine(model, obs, scene.meshes, pose, scene.ecfg, device=dev)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        if us > 0:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us
+    busy = sum(kernels.values())
+    fam = {name: 0.0 for name, _ in _FAMILIES}
+    fam["other (elementwise, index, copies)"] = 0.0
+    for key, us in kernels.items():
+        low = key.lower()
+        hit = next((name for name, toks in _FAMILIES if any(t in low for t in toks)),
+                   "other (elementwise, index, copies)")
+        fam[hit] += us
+    shares = ", ".join(f"{n} {us / 1e3:.2f} ms" for n, us in fam.items())
+    log(f"[{label} breakdown] one call under the profiler: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms (idle share {1 - busy / wall_us:.3f}); {shares} [{card}]")
+    for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[{label} breakdown]   {us / 1e3:8.3f} ms  {key[:110]}")
+
+
+def small_reference_checks(dev) -> None:
+    """The card's path equals the CPU path on small inputs: renders of a
+    CSR (ico4, 96x128) and a dense (64x64) scene, and a 2-iteration refine
+    of the 64x64 scene with the same weights."""
+    k96 = np.array([[150.0, 0, 64.0], [0, 150.0, 48.0], [0, 0, 1]], np.float32)
+    k64 = np.array([[80.0, 0, 32.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
+    for hw, kk, detail in (((96, 128), k96, 4), ((64, 64), k64, 2)):
+        sc = build_scene(2, *hw, kk, num_iters=2, mesh_detail=detail, device="cpu")
+        m = sc.meshes
+        args = (m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(sc.pose0),
+                torch.from_numpy(kk), sc.ecfg.raster)
+        rgb_g, depth_g = rasterize(*args, device=dev)
+        rgb_c, depth_c = rasterize(*args, device="cpu")
+        if not torch.equal(depth_g.cpu() > 0, depth_c > 0):
+            raise AssertionError(f"{hw}: card and CPU hit masks differ")
+        d_err = float((depth_g.cpu() - depth_c).abs().max())
+        c_err = float((rgb_g.cpu() - rgb_c).abs().max())
+        if d_err > 1e-5 or c_err > 5e-3:
+            raise AssertionError(f"{hw}: card vs CPU depth {d_err}, rgb {c_err}")
+        log(f"[reference] {hw} render (detail {detail}): card == CPU hit mask, depth err {d_err:.3g}, rgb err {c_err:.3g}")
+    sc = build_scene(2, 64, 64, k64, num_iters=2, device="cpu")
+    model = make_model(True, seed=5, dev="cpu", hw=(64, 64))
+    obs = Observation(sc.image, box_fill(sc.mask), None, None, torch.from_numpy(k64))
+    pose_c = refine(model, obs, sc.meshes, torch.from_numpy(sc.pose0), sc.ecfg, device="cpu")[1]
+    pose_g = refine(model.to(dev), obs, sc.meshes, torch.from_numpy(sc.pose0), sc.ecfg, device=dev)[1]
+    err = float((pose_g.cpu() - pose_c).abs().max())
+    if not torch.isfinite(pose_g).all() or err > 1e-4:
+        raise AssertionError(f"64x64 refine: card vs CPU pose err {err}")
+    log(f"[reference] 64x64 refine, 2 iterations: card vs CPU pose err {err:.3g}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
+              file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    # 1. Device and build.
+    card = card_line()
+    log(card)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}; "
+        f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    t0 = time.perf_counter()
+    rk.load_library()
+    log(f"[build] raster.cu: {time.perf_counter() - t0:.2f} s (nvcc {rk.BUILD_INFO['seconds']:.2f} s) [{card}]")
+    for line in rk.BUILD_INFO["log"].splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            log(f"[build] {line.strip()}")
+
+    # 2. Kernels against their plain twins at the main path's shapes.
+    k = torch.from_numpy(LINEMOD_K)
+    csr_scene = build_scene(16, H, W, LINEMOD_K, num_iters=4, mesh_detail=5, active_tiles=32, device=dev)
+    dense_scene = build_scene(2, H, W, LINEMOD_K, num_iters=4, mesh_detail=2, device=dev)
+    results = {}
+    for name, sc in (("csr_raster", csr_scene), ("tile_raster", dense_scene)):
+        m = sc.meshes
+        launches = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(sc.pose0),
+                                 k, sc.ecfg.raster, corners=m.corners, corner_colors=m.corner_colors,
+                                 device=dev)
+        got, args = launches[0]
+        if got != name:
+            raise AssertionError(f"scene meant for {name} plans {got}")
+        results[name] = check_kernel(name, args, card)
+
+    # 3./4. The main path on each raster kernel.
+    csr_model, dense_model = make_model(False, 0, dev), make_model(True, 1, dev)
+    counts_csr = drive_main_path("main path, CSR (20,480-face meshes, FAST_TEST)", csr_scene,
+                                 csr_model, dev, card, "csr_raster", min_per_call=4 * 2)
+    counts_dense = drive_main_path("main path, dense (320-face meshes, full network)", dense_scene,
+                                   dense_model, dev, card, "tile_raster", min_per_call=4)
+    results["csr_raster"]["launches"] = counts_csr["csr_raster"]
+    results["tile_raster"]["launches"] = counts_dense["tile_raster"]
+    breakdown("CSR path", csr_scene, csr_model, dev, card)
+    breakdown("dense path", dense_scene, dense_model, dev, card)
+
+    # 6. Small-input reference checks.
+    small_reference_checks(dev)
+    log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+    kernels = [
+        {
+            "name": name, "route": "cuda", "source": "deepim_tpu_torch/csrc/raster.cu",
+            "replaces": REPLACES[name], "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+        }
+        for name, r in results.items()
+    ]
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

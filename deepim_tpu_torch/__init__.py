@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of deepim_tpu: the render-and-compare 6D pose refiner
+on an NVIDIA H100.
+
+The package mirrors deepim_tpu's module layout and function names
+(geometry/, render/, ops/, models/, engine/) so each module's counterpart
+is easy to find.  It imports torch, numpy and scipy only -- never JAX and
+nothing of deepim_tpu.  The rasterizer's two on-path kernels are CUDA C++
+(csrc/raster.cu), built with nvcc at first use; every kernel has a plain
+PyTorch twin that runs on CPU tensors.
+
+Entry points take `device` (default "cuda") and raise when CUDA is absent
+and the caller did not ask for the CPU.
+"""
+from deepim_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

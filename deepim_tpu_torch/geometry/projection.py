@@ -1,0 +1,14 @@
+"""Pinhole projection (PyTorch counterpart of
+deepim_tpu/geometry/projection.py).  Integer pixel index (w, h) maps
+through K directly, with no half-pixel offset."""
+from __future__ import annotations
+
+import torch
+
+
+def project_points(points: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Camera-frame points (..., 3) -> (w, h) pixel coordinates (..., 2)."""
+    uvw = torch.einsum("ij,...j->...i", k, points)
+    w = uvw[..., 2]
+    z = w + torch.sign(w) * 1e-15 + torch.where(w == 0, 1e-15, 0.0)
+    return uvw[..., :2] / z[..., None]

@@ -1,0 +1,203 @@
+"""FlowNetS-style matching network with SE(3), flow and mask heads
+(PyTorch counterpart of deepim_tpu/models/flownet.py; NCHW inside).
+
+* encoder: conv ladder 64/128/256/256/512/512/512/512/1024/1024,
+  LeakyReLU(0.1), stride 2 at conv1/2/3/4/5/6, MXNet padding arithmetic
+  (480x640 -> ... -> 8x10);
+* SE(3) head: flatten conv6_1 in H*W*C order (as the JAX model does, so
+  fc6 weights bridge unchanged at any input size) -> FC256 -> FC256 ->
+  {FC4 L2-normalized quaternion, FC3 translation in zoomed pixels};
+* flow decoder / mask head: deconv5/deconv4 skip refinement (k4 s2 then a
+  crop at 1), per-scale flow convs, and the frozen x16 bilinear upsample +
+  crop(8) as two interpolation-matrix products.
+
+With pred_flow and pred_mask both off (the FAST_TEST eval graph) only the
+encoder and the SE(3) head are built and run.
+"""
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from deepim_tpu_torch.device import resolve_device
+
+
+def leaky(x):
+    return F.leaky_relu(x, negative_slope=0.1)
+
+
+@lru_cache(maxsize=None)
+def _bilinear_matrix(size_in: int, size_out: int, factor: int, offset: int) -> np.ndarray:
+    """(size_out, size_in) matrix of MXNet's fixed bilinear deconvolution
+    (kernel 2f, stride f) followed by a crop at `offset`."""
+    f = factor
+    k = 2 * f
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    kern = np.array([1 - abs(i / f - c) for i in range(k)], np.float32)
+    m = np.zeros((size_out, size_in), np.float32)
+    for j in range(size_in):
+        for ki in range(k):
+            o = j * f + ki - offset
+            if 0 <= o < size_out:
+                m[o, j] += kern[ki]
+    return m
+
+
+def fixed_bilinear_upsample(x: torch.Tensor, out_h: int, out_w: int, factor: int = 16,
+                            offset: int = 8) -> torch.Tensor:
+    """(B, C, h, w) -> (B, C, out_h, out_w) through the frozen x16 bilinear
+    deconv + crop(8), as two matrix products."""
+    _, _, h, w = x.shape
+    mh = torch.from_numpy(_bilinear_matrix(h, out_h, factor, offset)).to(x.device, x.dtype)
+    mw = torch.from_numpy(_bilinear_matrix(w, out_w, factor, offset)).to(x.device, x.dtype)
+    y = torch.einsum("oh,bchw->bcow", mh, x)
+    return torch.einsum("pw,bcow->bcop", mw, y)
+
+
+class Deconv(nn.Module):
+    """MXNet Deconvolution k4 s2 p0 (out = 2 in + 2) then Crop(1, 1) to the
+    skip feature's size."""
+
+    def __init__(self, cin: int, cout: int, device=None):
+        super().__init__()
+        self.deconv = nn.ConvTranspose2d(cin, cout, 4, stride=2, padding=0, device=device)
+
+    def forward(self, x, out_h: int, out_w: int):
+        return self.deconv(x)[:, :, 1:1 + out_h, 1:1 + out_w]
+
+
+_ENCODER = (
+    # name, cin, cout, kernel, stride, pad
+    ("flow_conv1", None, 64, 7, 2, 3),
+    ("conv2", 64, 128, 5, 2, 2),
+    ("conv3", 128, 256, 5, 2, 2),
+    ("conv3_1", 256, 256, 3, 1, 1),
+    ("conv4", 256, 512, 3, 2, 1),
+    ("conv4_1", 512, 512, 3, 1, 1),
+    ("conv5", 512, 512, 3, 2, 1),
+    ("conv5_1", 512, 512, 3, 1, 1),
+    ("conv6", 512, 1024, 3, 2, 1),
+    ("conv6_1", 1024, 1024, 3, 1, 1),
+)
+
+
+def conv_out(n: int, k: int, s: int, p: int) -> int:
+    return (n + 2 * p - k) // s + 1
+
+
+def conv6_hw(height: int, width: int) -> tuple[int, int]:
+    """Spatial size of conv6_1 for an (height, width) input."""
+    for _, _, _, k, s, p in _ENCODER:
+        height, width = conv_out(height, k, s, p), conv_out(width, k, s, p)
+    return height, width
+
+
+class FlowNetDeepIM(nn.Module):
+    """The matching network.  Input (B, C, H, W): zoomed observed and
+    rendered images (already /255) plus mask channels (assemble_input).
+
+    Returns a dict with 'rot' (B, 4) unit quaternion, 'trans' (B, 3) in
+    zoomed-pixel units and, when enabled, 'flow' (B, 2, H, W) and
+    'mask_logit' (B, 1, H, W).  `input_hw` sizes fc6; weights are drawn from
+    `generator` (a seeded torch.Generator) with the JAX model's init rules:
+    Xavier-uniform FCs, the quaternion head's w-column trick, a zero
+    translation head and N(0, 0.01) mask conv; convolutions use LeCun
+    normal, flax's default."""
+
+    def __init__(self, in_channels: int = 8, input_hw: tuple[int, int] = (480, 640),
+                 pred_flow: bool = True, pred_mask: bool = True,
+                 generator: torch.Generator | None = None, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.pred_flow, self.pred_mask = pred_flow, pred_mask
+        self.input_hw = tuple(input_hw)
+        convs = {}
+        for name, cin, cout, k, s, p in _ENCODER:
+            convs[name] = nn.Conv2d(cin or in_channels, cout, k, stride=s, padding=p, device=dev)
+        self.convs = nn.ModuleDict(convs)
+        h6, w6 = conv6_hw(*self.input_hw)
+        self.fc6 = nn.Linear(1024 * h6 * w6, 256, device=dev)
+        self.fc7 = nn.Linear(256, 256, device=dev)
+        self.rot = nn.Linear(256, 4, device=dev)
+        self.trans = nn.Linear(256, 3, device=dev)
+        if pred_flow or pred_mask:
+            self.Convolution1 = nn.Conv2d(1024, 2, 3, padding=1, device=dev)
+            self.deconv5 = Deconv(1024, 512, device=dev)
+            self.upsample_flow6to5 = Deconv(2, 2, device=dev)
+            self.Convolution2 = nn.Conv2d(1026, 2, 3, padding=1, device=dev)
+            self.deconv4 = Deconv(1026, 256, device=dev)
+            self.upsample_flow5to4 = Deconv(2, 2, device=dev)
+        if pred_flow:
+            self.Convolution3 = nn.Conv2d(770, 2, 3, padding=1, device=dev)
+        if pred_mask:
+            self.mask_conv3 = nn.Conv2d(770, 1, 3, padding=1, device=dev)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        g = generator
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                # LeCun normal (flax's default): fan_in = in * kh * kw.
+                fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # truncated-normal scale
+                w = torch.empty(m.weight.shape, device="cpu")
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
+                m.weight.copy_(w * std)
+                m.bias.zero_()
+        for lin in (self.fc6, self.fc7):
+            bound = math.sqrt(6.0 / (lin.in_features + lin.out_features))
+            lin.weight.copy_(torch.empty(lin.weight.shape).uniform_(-bound, bound, generator=g))
+            lin.bias.zero_()
+        w = torch.rand(self.rot.weight.shape, generator=g) * 0.01
+        w[0::4] = torch.rand(w[0::4].shape, generator=g) + 0.01
+        self.rot.weight.copy_(w)
+        self.rot.bias.zero_()
+        self.trans.weight.zero_()
+        self.trans.bias.zero_()
+        if self.pred_mask:
+            self.mask_conv3.weight.copy_(torch.randn(self.mask_conv3.weight.shape, generator=g) * 0.01)
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        h_in, w_in = x.shape[2], x.shape[3]
+        feats = {}
+        y = x
+        for name, *_ in _ENCODER:
+            y = leaky(self.convs[name](y))
+            feats[name] = y
+        c6_1, c5_1, c4_1 = feats["conv6_1"], feats["conv5_1"], feats["conv4_1"]
+        flat = c6_1.permute(0, 2, 3, 1).reshape(c6_1.shape[0], -1)  # H*W*C order
+        fc7 = leaky(self.fc7(leaky(self.fc6(flat))))
+        rot = self.rot(fc7)
+        rot = rot / torch.clamp(torch.linalg.norm(rot, dim=-1, keepdim=True), min=1e-12)
+        out = {"rot": rot, "trans": self.trans(fc7)}
+        if self.pred_flow or self.pred_mask:
+            flow6 = self.Convolution1(c6_1)
+            h5, w5 = c5_1.shape[2], c5_1.shape[3]
+            d5 = leaky(self.deconv5(c6_1, h5, w5))
+            up6 = self.upsample_flow6to5(flow6, h5, w5)
+            cat2 = torch.cat([c5_1, d5, up6], dim=1)
+            flow5 = self.Convolution2(cat2)
+            h4, w4 = c4_1.shape[2], c4_1.shape[3]
+            d4 = leaky(self.deconv4(cat2, h4, w4))
+            up5 = self.upsample_flow5to4(flow5, h4, w4)
+            cat3 = torch.cat([c4_1, d4, up5], dim=1)
+            if self.pred_flow:
+                out["flow"] = fixed_bilinear_upsample(self.Convolution3(cat3), h_in, w_in)
+            if self.pred_mask:
+                out["mask_logit"] = fixed_bilinear_upsample(self.mask_conv3(cat3), h_in, w_in)
+        return out
+
+
+def assemble_input(image_observed, image_rendered, mask_observed=None, mask_rendered=None):
+    """Concatenate NCHW network inputs; images raw [0, 255] are scaled by
+    1/255."""
+    parts = [image_observed / 255.0, image_rendered / 255.0]
+    if mask_observed is not None:
+        parts += [mask_observed, mask_rendered]
+    return torch.cat(parts, dim=1)

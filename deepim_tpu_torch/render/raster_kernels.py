@@ -1,0 +1,334 @@
+"""The rasterizer's per-tile z-buffer + shading kernels: CUDA wrappers,
+their plain PyTorch twins, launch counters and the nvcc build.
+
+Counterpart of deepim_tpu/render/pallas_raster.py.  Two kernels, both in
+csrc/raster.cu (the source explains their design and what bounds them):
+
+* csr_raster  replaces pallas_raster._csr_chunk_kernel ("slots8", launched
+  by pallas_csr_group): one 16x8 fine tile per work item, walking the
+  tile's CSR segment of csr_pack-face units.  Output (W, 5, 128) rows
+  [q, fid, r*q, g*q, b*q]; a pixel no face covers keeps q = -1e30 and
+  fid = 1e30.
+* tile_raster replaces pallas_raster._tile_kernel (dense path, launched by
+  pallas_visibility_shade): one tile_h x tile_w tile per work item, looping
+  over the tile's counts[w] face ids.  Output (W, 4, P) rows
+  [zq, r*q, g*q, b*q].
+
+Both resolve visibility with the TPU kernels' rule: the largest clamped
+interpolated 1/z wins, exact ties go to the smallest global face id (the
+earliest-drawn face, as GL does).
+
+A wrapper launches its kernel for CUDA tensors (or raises) and runs the
+plain twin only for CPU tensors; there is no fallback from one to the
+other.  Each wrapper counts its launches in `<wrapper>.launches`.  The
+twins evaluate the same planes in the same order (((a*dx) + (b*dy)) + c,
+each op rounded on its own) and vectorise over (work items x face chunk x
+pixels): a first-max torch.argmax inside a chunk, then a strict `>` merge
+across chunks, which picks the same winner as the kernels' sequential
+strict loop over ascending face ids.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+REC_WIDTH = 32
+NEG = -1e30
+BIG = 1e30
+CSR_TILE_PIXELS = 128
+# Faces per twin chunk; the CUDA kernels stage the same counts in shared
+# memory (kCsrStage / kTileStage in csrc/raster.cu).
+CSR_STAGE = 192
+TILE_STAGE = 128
+# Elements per (work items, chunk, pixels) temporary of the twins.
+_TWIN_BUDGET = 1 << 25
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "raster.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# Filled by load_library(): seconds spent in nvcc (0.0 when the library was
+# already built) and nvcc's -Xptxas -v register/shared-memory report.
+BUILD_INFO: dict = {}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "deepim_tpu_torch: nvcc not found (PATH or $CUDA_HOME/bin); the CUDA "
+        "raster kernels are built from csrc/raster.cu at first use"
+    )
+
+
+def load_library():
+    """Build csrc/raster.cu with nvcc into _build/ (keyed by a hash of the
+    source and flags) on first use, load it with ctypes and return it."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        src = SOURCE.read_bytes()
+        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        so = BUILD_DIR / f"raster_{key}.so"
+        seconds, log = 0.0, ""
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = BUILD_DIR / f"raster_{key}.{os.getpid()}.tmp.so"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                capture_output=True, text=True,
+            )
+            seconds = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{log}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.csr_raster_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+        lib.csr_raster_launch.restype = ci
+        lib.tile_raster_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+        lib.tile_raster_launch.restype = ci
+        BUILD_INFO.update(seconds=seconds, log=log, path=str(so))
+        _lib = lib
+        return lib
+
+
+def reset_launch_counts() -> None:
+    csr_raster.launches = 0
+    tile_raster.launches = 0
+
+
+def _check_cuda_args(name, tensors, dtypes):
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if t.device != dev:
+            raise ValueError(f"{name}: all inputs must be on {dev}, got {t.device}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _launch_check(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def _pixel_coords(tile_xy, p, tile_w):
+    lin = torch.arange(p, device=tile_xy.device)
+    px = (tile_xy[:, 0:1] + lin % tile_w).float()
+    py = (tile_xy[:, 1:2] + lin // tile_w).float()
+    return px, py
+
+
+def _coverage(rec, px, py):
+    """rec (W, C, 32), px/py (W, P) -> (inside (W, C, P), qi (W, C, P))."""
+    dx = px[:, None, :] - rec[..., 0:1]
+    dy = py[:, None, :] - rec[..., 1:2]
+    e0 = rec[..., 2:3] * dx + rec[..., 3:4] * dy + rec[..., 4:5]
+    e1 = rec[..., 5:6] * dx + rec[..., 6:7] * dy
+    e2 = rec[..., 7:8] * dx + rec[..., 8:9] * dy
+    inside = torch.minimum(e0, torch.minimum(e1, e2)) >= 0
+    qi = torch.clamp(
+        rec[..., 9:10] * dx + rec[..., 10:11] * dy + rec[..., 11:12],
+        rec[..., 12:13], rec[..., 13:14],
+    )
+    return inside, qi
+
+
+def _winner_planes(records, best_gf, px, py):
+    """Per-pixel winner record -> (fid, r*q, g*q, b*q), each (W, P)."""
+    rec = records[best_gf.clamp(min=0)]  # (W, P, 32)
+    dx = px - rec[..., 0]
+    dy = py - rec[..., 1]
+    chans = [
+        rec[..., 16 + 3 * c] * dx + rec[..., 17 + 3 * c] * dy + rec[..., 18 + 3 * c]
+        for c in range(3)
+    ]
+    return rec[..., 14], chans
+
+
+def _zbuffer_plain(records, face_ids, live, px, py, best):
+    """Merge one chunk of candidate faces into the running winner.
+
+    face_ids/live: (W, C) global face ids in draw order; best = (q, gf)."""
+    rec = records[face_ids.clamp(min=0)]  # (W, C, 32)
+    inside, qi = _coverage(rec, px, py)
+    qi = torch.where(inside & live[..., None], qi, torch.full_like(qi, NEG))
+    a_c = torch.argmax(qi, dim=1, keepdim=True)  # first max = lowest face id
+    q_c = torch.gather(qi, 1, a_c)[:, 0]
+    f_c = torch.gather(face_ids, 1, a_c[:, 0])
+    upd = q_c > best[0]
+    return torch.where(upd, q_c, best[0]), torch.where(upd, f_c, best[1])
+
+
+def csr_raster_plain(records, sorted_unit, seg_start, seg_count, tile_xy, unit_base,
+                     pack: int, tile_w: int):
+    """Plain PyTorch twin of csr_raster (same arguments, same output)."""
+    w_items = seg_count.shape[0]
+    p = CSR_TILE_PIXELS
+    dev = records.device
+    out = torch.empty((w_items, 5, p), dtype=torch.float32, device=dev)
+    ch_u = max(1, CSR_STAGE // pack)
+    wb = max(1, _TWIN_BUDGET // (ch_u * pack * p))
+    pos_u = torch.arange(ch_u, device=dev)
+    in_unit = torch.arange(pack, device=dev)
+    last = max(sorted_unit.numel() - 1, 0)
+    for w0 in range(0, w_items, wb):
+        sl = slice(w0, min(w0 + wb, w_items))
+        cnt = seg_count[sl].long()
+        start = seg_start[sl].long()
+        base = unit_base[sl].long()
+        px, py = _pixel_coords(tile_xy[sl], p, tile_w)
+        n = cnt.shape[0]
+        best = (
+            torch.full((n, p), NEG, dtype=torch.float32, device=dev),
+            torch.full((n, p), -1, dtype=torch.long, device=dev),
+        )
+        n_chunks = -(-int(cnt.max()) // ch_u) if n else 0
+        for c in range(n_chunks):
+            pos = c * ch_u + pos_u
+            live_u = pos[None, :] < cnt[:, None]  # (n, ch_u)
+            unit = sorted_unit[(start[:, None] + pos[None, :]).clamp(max=last)].long()
+            unit = torch.where(live_u, unit, torch.zeros_like(unit))
+            gf = ((base[:, None] + unit)[..., None] * pack + in_unit).reshape(n, ch_u * pack)
+            live = live_u.repeat_interleave(pack, dim=1)
+            best = _zbuffer_plain(records, gf, live, px, py, best)
+        q, gf = best
+        hit = q > NEG
+        fid, chans = _winner_planes(records, gf, px, py)
+        out[sl, 0] = q
+        out[sl, 1] = torch.where(hit, fid, torch.full_like(fid, BIG))
+        for c in range(3):
+            out[sl, 2 + c] = torch.where(hit, chans[c], torch.zeros_like(chans[c]))
+    return out
+
+
+def tile_raster_plain(records, tf_global, counts, tile_xy, tile_h: int, tile_w: int):
+    """Plain PyTorch twin of tile_raster (same arguments, same output)."""
+    w_items, k_cap = tf_global.shape
+    p = tile_h * tile_w
+    dev = records.device
+    out = torch.empty((w_items, 4, p), dtype=torch.float32, device=dev)
+    ch = min(TILE_STAGE, max(k_cap, 1))
+    wb = max(1, _TWIN_BUDGET // (ch * p))
+    pos_c = torch.arange(ch, device=dev)
+    for w0 in range(0, w_items, wb):
+        sl = slice(w0, min(w0 + wb, w_items))
+        cnt = counts[sl].long()
+        ids = tf_global[sl].long()
+        px, py = _pixel_coords(tile_xy[sl], p, tile_w)
+        n = cnt.shape[0]
+        best = (
+            torch.full((n, p), NEG, dtype=torch.float32, device=dev),
+            torch.full((n, p), -1, dtype=torch.long, device=dev),
+        )
+        n_chunks = -(-int(cnt.max()) // ch) if n else 0
+        for c in range(n_chunks):
+            pos = c * ch + pos_c
+            live = pos[None, :] < cnt[:, None]
+            face = ids[:, pos.clamp(max=k_cap - 1)]
+            face = torch.where(live, face, torch.zeros_like(face))
+            best = _zbuffer_plain(records, face, live, px, py, best)
+        q, gf = best
+        hit = q > NEG
+        _, chans = _winner_planes(records, gf, px, py)
+        out[sl, 0] = q
+        for c in range(3):
+            out[sl, 1 + c] = torch.where(hit, chans[c], torch.zeros_like(chans[c]))
+    return out
+
+
+def csr_raster(records, sorted_unit, seg_start, seg_count, tile_xy, unit_base,
+               pack: int, tile_w: int):
+    """CSR z-buffer + shade over 16x8 fine tiles.
+
+    records (N, 32) f32 face records; sorted_unit (S,) i32 flat CSR unit ids;
+    seg_start/seg_count (W,) i32 each work item's first slot in sorted_unit
+    and its unit count; tile_xy (W, 2) i32 tile pixel origin; unit_base (W,)
+    i32 the work item's sample * units per sample (global face id =
+    (unit_base + unit) * pack + j).  Returns (W, 5, 128) f32
+    [q, fid, r*q, g*q, b*q]."""
+    if tile_w <= 0 or CSR_TILE_PIXELS % tile_w:
+        raise ValueError(f"csr_raster: tile_w {tile_w} must divide {CSR_TILE_PIXELS}")
+    dev = records.device
+    if dev.type == "cpu":
+        return csr_raster_plain(records, sorted_unit, seg_start, seg_count, tile_xy,
+                                unit_base, pack, tile_w)
+    if dev.type != "cuda":
+        raise ValueError(f"csr_raster: unsupported device {dev}")
+    args = (records, sorted_unit, seg_start, seg_count, tile_xy, unit_base)
+    _check_cuda_args("csr_raster", args, (torch.float32,) + (torch.int32,) * 5)
+    w_items = seg_count.shape[0]
+    if records.shape[-1] != REC_WIDTH or tile_xy.shape != (w_items, 2):
+        raise ValueError("csr_raster: bad record or tile_xy shape")
+    if records.shape[0] * REC_WIDTH >= 2**31:
+        raise ValueError("csr_raster: record table exceeds 32-bit indexing")
+    out = torch.empty((w_items, 5, CSR_TILE_PIXELS), dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.csr_raster_launch(
+            *(t.data_ptr() for t in args), out.data_ptr(),
+            w_items, int(pack), int(tile_w), stream,
+        )
+    _launch_check("csr_raster", rc)
+    csr_raster.launches += 1
+    return out
+
+
+def tile_raster(records, tf_global, counts, tile_xy, tile_h: int, tile_w: int):
+    """Dense z-buffer + shade over tile_h x tile_w tiles.
+
+    records (N, 32) f32; tf_global (W, K) i32 global face ids in draw order
+    (-1 padded past counts[w]); counts (W,) i32; tile_xy (W, 2) i32.
+    Returns (W, 4, tile_h * tile_w) f32 [zq, r*q, g*q, b*q]."""
+    dev = records.device
+    if dev.type == "cpu":
+        return tile_raster_plain(records, tf_global, counts, tile_xy, tile_h, tile_w)
+    if dev.type != "cuda":
+        raise ValueError(f"tile_raster: unsupported device {dev}")
+    p = tile_h * tile_w
+    if p > 1024 or p % 32:
+        raise ValueError(f"tile_raster: tile of {p} pixels must be a multiple of 32, <= 1024")
+    args = (records, tf_global, counts, tile_xy)
+    _check_cuda_args("tile_raster", args, (torch.float32,) + (torch.int32,) * 3)
+    w_items, k_cap = tf_global.shape
+    if records.shape[-1] != REC_WIDTH or tile_xy.shape != (w_items, 2):
+        raise ValueError("tile_raster: bad record or tile_xy shape")
+    if records.shape[0] * REC_WIDTH >= 2**31:
+        raise ValueError("tile_raster: record table exceeds 32-bit indexing")
+    out = torch.empty((w_items, 4, p), dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tile_raster_launch(
+            *(t.data_ptr() for t in args), out.data_ptr(),
+            w_items, int(k_cap), p, int(tile_w), stream,
+        )
+    _launch_check("tile_raster", rc)
+    tile_raster.launches += 1
+    return out
+
+
+csr_raster.launches = 0
+tile_raster.launches = 0

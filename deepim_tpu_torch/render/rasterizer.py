@@ -1,0 +1,497 @@
+"""Batched tile-based triangle rasterizer (PyTorch counterpart of
+deepim_tpu/render/rasterizer.py).
+
+Pipeline, all batched:
+  1. corner projection (explicit elementwise sums);
+  2. the shared (B*F, 32) face-record table of anchored screen-space planes
+     (build_face_records; lane layout in raster_kernels / pallas_raster);
+  3. tile binning: dense per-tile face lists (bin_faces) or exact CSR
+     segments of (tile, pack-unit) pairs over 16x8 fine tiles
+     (bin_faces_csr), with the per-unit tile budget and dropped-pair count;
+  4. one count-sorted work list over all (sample, tile) pairs, keeping the
+     `active_tiles` budget;
+  5. the z-buffer + shade kernel (raster_kernels.csr_raster or
+     raster_kernels.tile_raster: CUDA on the card, plain twins on CPU);
+  6. untiling into (B, H, W).
+
+Camera convention: pixel (i, j) is image-plane point u = fx x/z + cx = j,
+v = fy y/z + cy = i; depth is camera-frame z.  Faces with a corner outside
+(znear, zfar) are culled, the depth test keeps the largest 1/z and exact
+ties go to the earliest-drawn (lowest id) face.
+
+Path selection differs from the JAX package on purpose: `binning` alone
+selects the kernel (CSR when binning == "csr", or "auto" with more than
+2048 padded faces; otherwise dense).  `use_pallas` is kept so configs copy
+across and is ignored: the plain twins take the XLA fallback's place on the
+CPU.  The JAX package's TPU machinery (group scan under lax.cond, 8-slot
+merges, MXU prefix sums, one-hot histograms, inverse-permutation gathers)
+is replaced by plain torch ops (sort, bincount, cumsum, indexing).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from deepim_tpu_torch.device import resolve_device
+from deepim_tpu_torch.render.raster_kernels import csr_raster, tile_raster
+
+_NEG = -1e30
+
+
+@dataclass(frozen=True)
+class RasterConfig:
+    """Field-for-field copy of the JAX RasterConfig (see its comments for
+    each knob's measured rationale on the TPU).  Fields that only shape the
+    TPU kernels' schedule are kept so configs copy across:
+    `chunk`/`vis_mem_budget` (XLA visibility loop), `use_pallas`,
+    `csr_chunk` (only its divisibility by csr_pack matters: the CUDA kernel
+    stages 192 faces regardless), `worklist` (both orderings are the same
+    stable sort here) and `csr_group`.  csr_kernel="planes64" is not
+    ported and raises."""
+
+    height: int = 480
+    width: int = 640
+    tile_h: int = 8
+    tile_w: int = 128
+    max_faces_per_tile: int = 512
+    chunk: int = 32
+    znear: float = 0.25
+    zfar: float = 6.0
+    active_tiles: int = 128
+    bin_batch_chunk: int = 0
+    backface_cull: int = 0
+    raster_batch_chunk: int = 0
+    vis_mem_budget: int = 2 << 30
+    use_pallas: bool = False
+    binning: str = "auto"
+    bin_pairs: int = 0
+    csr_tile_h: int = 16
+    csr_tile_w: int = 8
+    csr_chunk: int = 192
+    csr_kernel: str = "slots8"
+    worklist: str = "topk"
+    csr_group: int = 1024
+    csr_pack: int = 4
+    csr_tiers: tuple = ()
+
+    @property
+    def tiles_y(self) -> int:
+        return -(-self.height // self.tile_h)
+
+    @property
+    def tiles_x(self) -> int:
+        return -(-self.width // self.tile_w)
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles_y * self.tiles_x
+
+
+def uses_csr(cfg: RasterConfig, nfaces: int) -> bool:
+    """The port's path rule: `binning` alone picks CSR vs dense."""
+    return cfg.binning == "csr" or (cfg.binning == "auto" and nfaces > 2048)
+
+
+def project_vertices(vertices: torch.Tensor, pose: torch.Tensor, k: torch.Tensor):
+    """(B, V, 3) model-frame points -> (u, v, z), each (B, V).
+
+    The rotation is applied as explicit elementwise sums (not einsum), so
+    the float32 rounding does not depend on a matmul backend."""
+    x, y, z = vertices[..., 0], vertices[..., 1], vertices[..., 2]
+    r, t = pose[..., :3], pose[..., 3]
+    cam = [
+        r[:, i, 0:1] * x + r[:, i, 1:2] * y + r[:, i, 2:3] * z + t[:, i:i + 1]
+        for i in range(3)
+    ]
+    zc = cam[2]
+    zs = torch.where(torch.abs(zc) < 1e-12, torch.full_like(zc, 1e-12), zc)
+    u = (k[:, 0:1, 0] * cam[0] + k[:, 0:1, 1] * cam[1]) / zs + k[:, 0:1, 2]
+    v = k[:, 1:2, 1] * cam[1] / zs + k[:, 1:2, 2]
+    return u, v, zc
+
+
+def _bbox_tiles(fu, fv, valid, th, tw, t_y, t_x, height, width):
+    """Per-face screen bbox -> clamped tile bounds + on-screen validity."""
+    umin, umax = fu.amin(-1), fu.amax(-1)
+    vmin, vmax = fv.amin(-1), fv.amax(-1)
+    bx0 = torch.clamp(torch.floor(umin / tw), 0, t_x - 1).long()
+    bx1 = torch.clamp(torch.floor(umax / tw), 0, t_x - 1).long()
+    by0 = torch.clamp(torch.floor(vmin / th), 0, t_y - 1).long()
+    by1 = torch.clamp(torch.floor(vmax / th), 0, t_y - 1).long()
+    offscreen = (umax < 0) | (umin > width - 1) | (vmax < 0) | (vmin > height - 1)
+    return bx0, bx1, by0, by1, valid & ~offscreen
+
+
+def bin_faces(fu, fv, valid, cfg: RasterConfig, th=None, tw=None):
+    """Dense binning, batched: fu/fv (B, F, 3), valid (B, F) ->
+    (tile_faces (B, T, K) int64 face ids in ascending order, -1 padded;
+    counts (B, T) capped at max_faces_per_tile)."""
+    th = cfg.tile_h if th is None else th
+    tw = cfg.tile_w if tw is None else tw
+    t_y, t_x = -(-cfg.height // th), -(-cfg.width // tw)
+    k_cap = cfg.max_faces_per_tile
+    f = fu.shape[1]
+    dev = fu.device
+    bx0, bx1, by0, by1, ok = _bbox_tiles(fu, fv, valid, th, tw, t_y, t_x, cfg.height, cfg.width)
+    ty = torch.arange(t_y, device=dev).repeat_interleave(t_x)[None, :, None]
+    tx = torch.arange(t_x, device=dev).repeat(t_y)[None, :, None]
+    overlap = (
+        ok[:, None, :]
+        & (tx >= bx0[:, None, :]) & (tx <= bx1[:, None, :])
+        & (ty >= by0[:, None, :]) & (ty <= by1[:, None, :])
+    )  # (B, T, F)
+    counts = torch.clamp(overlap.sum(-1), max=k_cap)
+    face_ids = torch.arange(f, device=dev)
+    keys = torch.where(overlap, face_ids, face_ids + f)
+    keys = torch.sort(keys, dim=-1).values
+    if f > k_cap:
+        keys = keys[..., :k_cap]
+    else:
+        keys = torch.nn.functional.pad(keys, (0, k_cap - f), value=2 * f)
+    return torch.where(keys < f, keys, torch.full_like(keys, -1)), counts
+
+
+def _csr_pack_for(cfg: RasterConfig, f: int) -> int:
+    """Effective binning pack: csr_pack reduced to the largest power of two
+    dividing the padded face count (and csr_chunk)."""
+    pack = max(1, cfg.csr_pack)
+    while pack > 1 and (f % pack or cfg.csr_chunk % pack):
+        pack //= 2
+    return pack
+
+
+def bin_faces_csr(fu, fv, valid, cfg: RasterConfig, th=None, tw=None):
+    """Sparse binning, batched: (tile, unit) overlap pairs, a unit being
+    csr_pack consecutive faces (union bbox of its valid faces).
+
+    Each unit enumerates its bbox tiles in row-major order into a static
+    budget of S slots (bin_pairs // units, 8 by default, or per-tier
+    budgets from csr_tiers); pairs past the budget are dropped and counted.
+    Returns (sorted_unit (B, N) int32, units ascending within each tile and
+    U = invalid; offsets (B, T) int64; counts (B, T) int64; dropped (B,)
+    int64)."""
+    th = cfg.tile_h if th is None else th
+    tw = cfg.tile_w if tw is None else tw
+    t_y, t_x = -(-cfg.height // th), -(-cfg.width // tw)
+    n_tiles = t_y * t_x
+    b, nfaces = fu.shape[0], fu.shape[1]
+    dev = fu.device
+    pack = _csr_pack_for(cfg, nfaces)
+    bx0, bx1, by0, by1, ok = _bbox_tiles(fu, fv, valid, th, tw, t_y, t_x, cfg.height, cfg.width)
+    if pack > 1:
+        u = nfaces // pack
+        okr = ok.reshape(b, u, pack)
+
+        def unite(x, fill, reduce):
+            return reduce(torch.where(okr, x.reshape(b, u, pack), torch.full_like(x.reshape(b, u, pack), fill)), -1)
+
+        bx0 = unite(bx0, t_x - 1, torch.amin)
+        bx1 = unite(bx1, 0, torch.amax)
+        by0 = unite(by0, t_y - 1, torch.amin)
+        by1 = unite(by1, 0, torch.amax)
+        ok = okr.any(-1)
+    f = nfaces // pack
+
+    wbb = torch.clamp(bx1 - bx0 + 1, min=1)
+    span = wbb * (by1 - by0 + 1)
+
+    def tier_keys(u0, u1, s_t):
+        slot = torch.arange(s_t, device=dev)[None, None, :]
+        uidx = (u0 + torch.arange(u1 - u0, device=dev))[None, :, None]
+        okm, spanm, wbbm = ok[:, u0:u1, None], span[:, u0:u1, None], wbb[:, u0:u1, None]
+        pair_ok = okm & (slot < spanm)
+        tile = (by0[:, u0:u1, None] + slot // wbbm) * t_x + bx0[:, u0:u1, None] + slot % wbbm
+        tile = torch.clamp(tile, 0, n_tiles - 1)
+        k = torch.where(pair_ok, tile * f + uidx, torch.full_like(tile, n_tiles * f))
+        d = torch.where(okm[..., 0], torch.clamp(spanm[..., 0] - s_t, min=0), 0).sum(-1)
+        return k.reshape(b, -1), d
+
+    if cfg.csr_tiers:
+        ends = [int(e) for e, _ in cfg.csr_tiers]
+        if ends[-1] != f:
+            raise ValueError(
+                f"csr_tiers cover {ends[-1]} units but the mesh has {f} "
+                "(padded faces / csr_pack changed since tune_raster_for_bank)"
+            )
+        keys, drops = [], []
+        u0 = 0
+        for u1, s_t in cfg.csr_tiers:
+            k, d = tier_keys(u0, int(u1), min(int(s_t), n_tiles))
+            keys.append(k)
+            drops.append(d)
+            u0 = int(u1)
+        key = torch.cat(keys, dim=1)
+        dropped = torch.stack(drops).sum(0)
+    else:
+        s = min(max(cfg.bin_pairs // f, 1), n_tiles) if cfg.bin_pairs else min(8, n_tiles)
+        key, dropped = tier_keys(0, f, s)
+    key = torch.sort(key, dim=1).values  # keys are unique per sample
+    sorted_unit = torch.where(key < n_tiles * f, key % f, torch.full_like(key, f)).int()
+    tile_flat = key // f  # sentinel pairs land in bin n_tiles
+    rows = torch.arange(b, device=dev)[:, None] * (n_tiles + 1)
+    counts = torch.bincount((tile_flat + rows).reshape(-1), minlength=b * (n_tiles + 1))
+    counts = counts.reshape(b, n_tiles + 1)[:, :n_tiles]
+    offsets = torch.cumsum(counts, dim=1) - counts
+    return sorted_unit, offsets, counts, dropped
+
+
+def build_face_records(fu, fv, fq, fcol, valid):
+    """(N, 32) table of anchored screen-space planes.
+
+    fu, fv, fq: (N, 3) screen corners and corner 1/z; fcol: (N, 3, 3) corner
+    colors; valid: (N,).  Every plane is evaluated as a*dx + b*dy + c with
+    dx = px - u0 (anchored at corner 0).  Lane layout:
+    [0] u0 [1] v0 [2:5] A0 B0 ar [5:7] A1 B1 [7:9] A2 B2 [9:12] Qa Qb q0
+    [12] qmin [13] qmax [14] fid [15] pad [16:25] r*q, g*q, b*q planes
+    [25:32] pad; ar = -1e30 marks a face that covers nothing."""
+    n = fu.shape[0]
+    u0, u1, u2 = fu[:, 0], fu[:, 1], fu[:, 2]
+    v0, v1, v2 = fv[:, 0], fv[:, 1], fv[:, 2]
+    area = (u1 - u0) * (v2 - v0) - (v1 - v0) * (u2 - u0)
+    ok = valid & (torch.abs(area) > 1e-12)
+    s = torch.where(ok, torch.sign(area), torch.zeros_like(area))
+    ar = torch.where(ok, torch.abs(area), torch.full_like(area, _NEG))
+    inv = 1.0 / torch.where(ok, area, torch.ones_like(area))
+
+    def attr_plane(val):
+        d1 = val[:, 1] - val[:, 0]
+        d2 = val[:, 2] - val[:, 0]
+        a = (d1 * (v2 - v0) - d2 * (v1 - v0)) * inv
+        bb = (d2 * (u1 - u0) - d1 * (u2 - u0)) * inv
+        return [a, bb, val[:, 0]]
+
+    zero = torch.zeros_like(u0)
+    cols = [
+        u0, v0,
+        -(v2 - v1) * s, (u2 - u1) * s, ar,
+        -(v0 - v2) * s, (u0 - u2) * s,
+        -(v1 - v0) * s, (u1 - u0) * s,
+        *attr_plane(fq),
+        fq.amin(1), fq.amax(1),
+        torch.arange(n, dtype=fu.dtype, device=fu.device),
+        zero,
+    ]
+    for ch in range(3):
+        cols += attr_plane(fcol[:, :, ch] * fq)
+    cols += [zero] * (32 - len(cols))
+    return torch.stack(cols, dim=1)
+
+
+def _face_validity(fu, fv, fz, face_valid, cfg: RasterConfig):
+    """Render validity: in (znear, zfar), not a sliver, optional cull."""
+    in_range = ((fz > cfg.znear) & (fz < cfg.zfar)).all(-1)
+    screen_area = (
+        (fu[..., 1] - fu[..., 0]) * (fv[..., 2] - fv[..., 0])
+        - (fv[..., 1] - fv[..., 0]) * (fu[..., 2] - fu[..., 0])
+    )
+    valid = face_valid & in_range & (torch.abs(screen_area) > 1e-6)
+    if cfg.backface_cull:
+        valid = valid & (screen_area * cfg.backface_cull > 0)
+    return valid
+
+
+def _expand_k(k, b):
+    return k.expand(b, 3, 3) if k.dim() == 2 else k
+
+
+def expand_corners(vertices, colors, faces):
+    """(B, V, 3) x2 + (B, F, 3) -> corners, corner_colors (B, F, 3, 3)."""
+    b, nf, _ = faces.shape
+    idx = faces.reshape(b, nf * 3).long()[..., None].expand(b, nf * 3, 3)
+    corners = torch.gather(vertices, 1, idx).reshape(b, nf, 3, 3)
+    corner_colors = torch.gather(colors, 1, idx).reshape(b, nf, 3, 3)
+    return corners, corner_colors
+
+
+def csr_dropped_pairs(vertices, faces, face_valid, poses, k, cfg: RasterConfig,
+                      device="cuda") -> torch.Tensor:
+    """Face-tile pairs the CSR budget would drop for this batch at these
+    poses (0 = exact render)."""
+    dev = resolve_device(device)
+    vertices, faces, face_valid, poses, k = (
+        x.to(dev) for x in (vertices, faces, face_valid, poses, k)
+    )
+    b, nf = faces.shape[0], faces.shape[1]
+    u, v, z = project_vertices(vertices, poses, _expand_k(k, b))
+    idx = faces.reshape(b, nf * 3).long()
+    fu, fv, fz = (torch.gather(a, 1, idx).reshape(b, nf, 3) for a in (u, v, z))
+    valid = _face_validity(fu, fv, fz, face_valid, cfg)
+    _, _, _, dropped = bin_faces_csr(fu, fv, valid, cfg, th=cfg.csr_tile_h, tw=cfg.csr_tile_w)
+    return dropped.sum()
+
+
+def _sub_batches(vertices, colors, faces, face_valid, poses, k, cfg, corners, corner_colors, dev):
+    """Move inputs to `dev`, expand corners and split the batch into
+    raster_batch_chunk sub-batches of (faces, valid, poses, k, corners,
+    corner_colors)."""
+    faces, face_valid, poses, k = (x.to(dev) for x in (faces, face_valid, poses, k))
+    b = faces.shape[0]
+    kb = _expand_k(k, b)
+    if corners is None or corner_colors is None:
+        corners, corner_colors = expand_corners(vertices.to(dev), colors.to(dev), faces)
+    else:
+        corners, corner_colors = corners.to(dev), corner_colors.to(dev)
+    c = cfg.raster_batch_chunk if cfg.raster_batch_chunk and b > cfg.raster_batch_chunk else b
+    return [
+        tuple(x[i:i + c] for x in (faces, face_valid, poses, kb, corners, corner_colors))
+        for i in range(0, b, c)
+    ]
+
+
+def rasterize(vertices, colors, faces, face_valid, poses, k, cfg: RasterConfig = RasterConfig(),
+              corners=None, corner_colors=None, with_stats: bool = False, device="cuda"):
+    """Batched render.
+
+    vertices/colors: (B, V, 3); faces: (B, F, 3); face_valid: (B, F);
+    poses: (B, 3, 4); k: (3, 3) or (B, 3, 3); corners/corner_colors:
+    optional pre-expanded (B, F, 3, 3) (MeshBuffers.expand_corners).
+    Returns rgb (B, H, W, 3) in [0, 255] and depth (B, H, W); with
+    `with_stats` also `dropped`, a 0-dim int64 tensor counting the CSR
+    face-tile pairs the binning budget truncated (0 on the dense path)."""
+    dev = resolve_device(device)
+    outs = []
+    for sub in _sub_batches(vertices, colors, faces, face_valid, poses, k, cfg,
+                            corners, corner_colors, dev):
+        plan = _plan(*sub, cfg)
+        out = KERNELS[plan.kernel](*plan.args)
+        outs.append(_untile(plan, out, cfg))
+    rgb = torch.cat([o[0] for o in outs]) if len(outs) > 1 else outs[0][0]
+    depth = torch.cat([o[1] for o in outs]) if len(outs) > 1 else outs[0][1]
+    if not with_stats:
+        return rgb, depth
+    return rgb, depth, torch.stack([o[2] for o in outs]).sum()
+
+
+def kernel_inputs(vertices, colors, faces, face_valid, poses, k, cfg: RasterConfig = RasterConfig(),
+                  corners=None, corner_colors=None, device="cuda"):
+    """The z-buffer kernel launches `rasterize` would make for this batch,
+    as a list of (kernel name, wrapper arguments), one per sub-batch
+    (`KERNELS[name](*args)` launches one)."""
+    dev = resolve_device(device)
+    plans = [_plan(*sub, cfg) for sub in _sub_batches(
+        vertices, colors, faces, face_valid, poses, k, cfg, corners, corner_colors, dev)]
+    return [(p.kernel, p.args) for p in plans]
+
+
+KERNELS = {"csr_raster": csr_raster, "tile_raster": tile_raster}
+
+
+@dataclass
+class _Plan:
+    """One sub-batch's kernel launch and what untiling its output needs."""
+
+    kernel: str
+    args: tuple
+    b: int
+    t_y: int
+    t_x: int
+    th: int
+    tw: int
+    flat_ids: torch.Tensor
+    cnt_top: torch.Tensor
+    dropped: torch.Tensor
+
+
+def _plan(faces, face_valid, poses, kb, corners, corner_colors, cfg) -> _Plan:
+    """Project, build face records, bin and build the work list."""
+    b, nf, _ = faces.shape
+    dev = faces.device
+    # Global face ids ride the record table as float32 (exact below 2^24).
+    if b * nf >= (1 << 24):
+        raise ValueError(
+            f"batch {b} x {nf} padded faces overflows the float32 face-id range "
+            "(2^24); set RasterConfig.raster_batch_chunk to bound the per-call batch"
+        )
+    use_csr = uses_csr(cfg, nf)
+    if use_csr:
+        if cfg.csr_kernel != "slots8":
+            raise NotImplementedError(f"csr_kernel={cfg.csr_kernel!r} is not ported (only 'slots8')")
+        th, tw = cfg.csr_tile_h, cfg.csr_tile_w
+        if th * tw != 128:
+            raise ValueError("csr tile must be 128 pixels")
+    else:
+        th, tw = cfg.tile_h, cfg.tile_w
+    t_y, t_x = -(-cfg.height // th), -(-cfg.width // tw)
+    t = t_y * t_x
+    p = th * tw
+
+    u, v, z = project_vertices(corners.reshape(b, nf * 3, 3), poses, kb)
+    fu, fv, fz = u.reshape(b, nf, 3), v.reshape(b, nf, 3), z.reshape(b, nf, 3)
+    valid = _face_validity(fu, fv, fz, face_valid, cfg)
+    fq = 1.0 / torch.where(torch.abs(fz) < 1e-12, torch.full_like(fz, 1e-12), fz)
+    records = build_face_records(
+        fu.reshape(b * nf, 3), fv.reshape(b * nf, 3), fq.reshape(b * nf, 3),
+        corner_colors.reshape(b * nf, 3, 3), valid.reshape(b * nf),
+    )
+
+    if use_csr:
+        sorted_unit, offsets, counts, dropped = bin_faces_csr(fu, fv, valid, cfg, th=th, tw=tw)
+        dropped_total = dropped.sum()
+    else:
+        bc = cfg.bin_batch_chunk if cfg.bin_batch_chunk and b > cfg.bin_batch_chunk else b
+        parts = [bin_faces(fu[i:i + bc], fv[i:i + bc], valid[i:i + bc], cfg) for i in range(0, b, bc)]
+        tile_faces = torch.cat([q[0] for q in parts])
+        counts = torch.cat([q[1] for q in parts])
+        dropped_total = torch.zeros((), dtype=torch.long, device=dev)
+
+    # Count-sorted work list over all (sample, tile) pairs; a stable sort on
+    # negated counts is lax.top_k's contract (ties by ascending flat id).
+    a = min(-(-cfg.active_tiles * cfg.tile_h * cfg.tile_w // p), t) if cfg.active_tiles else t
+    w_items = b * a
+    neg_sorted, order = torch.sort(-counts.reshape(b * t), stable=True)
+    cnt_top = (-neg_sorted[:w_items]).int().contiguous()
+    flat_ids = order[:w_items]
+    sample_of = flat_ids // t
+    tile_of = flat_ids % t
+    tile_xy = torch.stack([(tile_of % t_x) * tw, (tile_of // t_x) * th], dim=1).int().contiguous()
+
+    if use_csr:
+        pack = _csr_pack_for(cfg, nf)
+        n_units = nf // pack
+        n_pairs = sorted_unit.shape[1]
+        seg_start = (sample_of * n_pairs + offsets.reshape(b * t)[flat_ids]).int().contiguous()
+        unit_base = (sample_of * n_units).int().contiguous()
+        kernel = "csr_raster"
+        args = (records, sorted_unit.reshape(-1).contiguous(), seg_start, cnt_top, tile_xy,
+                unit_base, pack, tw)
+    else:
+        tf_sel = tile_faces.reshape(b * t, cfg.max_faces_per_tile)[flat_ids]
+        tf_global = torch.where(tf_sel >= 0, tf_sel + (sample_of * nf)[:, None], -1).int()
+        kernel = "tile_raster"
+        args = (records, tf_global.contiguous(), cnt_top, tile_xy, th, tw)
+    return _Plan(kernel, args, b, t_y, t_x, th, tw, flat_ids, cnt_top, dropped_total)
+
+
+def _untile(plan: _Plan, out, cfg):
+    """Kernel output -> rgb (b, H, W, 3), depth (b, H, W), dropped."""
+    if plan.kernel == "csr_raster":
+        q_t, rgbq_t = out[:, 0], out[:, 2:5]
+    else:
+        q_t, rgbq_t = out[:, 0], out[:, 1:4]
+    hit = q_t > 0
+    qsafe = torch.where(hit, q_t, torch.ones_like(q_t))
+    depth_t = torch.where(hit, 1.0 / qsafe, torch.zeros_like(q_t))
+    rgb_t = torch.where(hit[:, None], rgbq_t / qsafe[:, None], torch.zeros_like(rgbq_t))
+
+    # Each (sample, tile) reads its work item's row, or the zero row when it
+    # has none (un-selected or empty tiles).
+    b, t_y, t_x, th, tw = plan.b, plan.t_y, plan.t_x, plan.th, plan.tw
+    w_items = plan.cnt_top.shape[0]
+    dev = out.device
+    src = torch.full((b * t_y * t_x,), w_items, dtype=torch.long, device=dev)
+    src[plan.flat_ids] = torch.where(plan.cnt_top > 0, torch.arange(w_items, device=dev), w_items)
+    rgbd = torch.cat([rgb_t, depth_t[:, None]], dim=1).transpose(1, 2)  # (W, P, 4)
+    rgbd = torch.cat([rgbd, rgbd.new_zeros((1, th * tw, 4))], dim=0)
+    img = (
+        rgbd[src]
+        .reshape(b, t_y, t_x, th, tw, 4)
+        .permute(0, 1, 3, 2, 4, 5)
+        .reshape(b, t_y * th, t_x * tw, 4)
+    )[:, : cfg.height, : cfg.width]
+    return img[..., 0:3], img[..., 3], plan.dropped
+
+
+def render_mask(depth: torch.Tensor, thresh: float = 0.2) -> torch.Tensor:
+    """Object mask from rendered depth."""
+    return (depth > thresh).to(depth.dtype)

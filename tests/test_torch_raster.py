@@ -1,0 +1,298 @@
+"""Parity of the port's rasterizer (deepim_tpu_torch.render) with the JAX
+package's, on the CPU, at test_csr_raster.py's 96x128 BASE.
+
+The JAX side runs its Pallas kernels in interpret mode (use_pallas=True),
+so the port's dense path is held to the dense tile kernel and its CSR path
+to the slots8 kernel; on the CPU the port runs the kernels' plain twins.
+Tolerances are the JAX package's own cross-path ones
+(test_csr_raster.py:58-70): hit masks exact, depth atol 1e-5, rgb atol
+5e-3, dropped-pair counts equal."""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+from scipy.spatial.transform import Rotation as R
+
+import jax
+import jax.numpy as jnp
+
+from deepim_tpu.engine.refine import EngineConfig as JEngineConfig
+from deepim_tpu.engine.refine import tune_raster_for_bank as j_tune
+from deepim_tpu.render import rasterizer as jr
+from deepim_tpu.render.mesh import MeshBank as JMeshBank
+from deepim_tpu.render.mesh import make_icosphere as j_ico
+from deepim_tpu.render.mesh import make_mixed_detail_mesh as j_mixed
+from deepim_tpu.render.mesh import make_test_cube as j_cube
+from deepim_tpu_torch.engine.refine import EngineConfig as TEngineConfig
+from deepim_tpu_torch.engine.refine import tune_raster_for_bank as t_tune
+from deepim_tpu_torch.render import mesh as tmesh
+from deepim_tpu_torch.render import raster_kernels as tk
+from deepim_tpu_torch.render import rasterizer as tr
+
+torch.set_num_threads(2)
+
+BASE = dict(
+    height=96, width=128, tile_h=8, tile_w=128, max_faces_per_tile=512,
+    chunk=16, znear=0.05, zfar=10.0, active_tiles=0,
+)
+K_MAT = np.array([[300.0, 0, 64.0], [0, 300.0, 48.0], [0, 0, 1.0]], np.float32)
+N_FINE = (96 // 16) * (128 // 8)
+
+
+def _cfgs(**kw):
+    """Matching (JAX, port) RasterConfigs; JAX runs its Pallas kernels."""
+    return jr.RasterConfig(**{**BASE, "use_pallas": True, **kw}), tr.RasterConfig(**{**BASE, **kw})
+
+
+def _scene(mesh, b=3, seed=0, pad=64):
+    bank = JMeshBank.from_meshes([mesh], pad_multiple=pad)
+    rng = np.random.RandomState(seed)
+    rot = R.random(b, random_state=rng).as_matrix().astype(np.float32)
+    pose = np.concatenate([rot, np.zeros((b, 3, 1), np.float32)], 2)
+    pose[:, 2, 3] = 0.5
+    pose[:, 0, 3] = rng.uniform(-0.05, 0.05, b)
+    pose[:, 1, 3] = rng.uniform(-0.03, 0.03, b)
+    tile = lambda x: np.tile(x, (b,) + (1,) * (x.ndim - 1))  # noqa: E731
+    return [tile(bank.vertices), tile(bank.colors), tile(bank.faces), tile(bank.face_valid), pose]
+
+
+def _jax_render(arrs, jcfg):
+    out = jr.rasterize(*(jnp.asarray(x) for x in arrs), jnp.asarray(K_MAT), jcfg, with_stats=True)
+    return [np.asarray(x) for x in out]
+
+
+def _torch_render(arrs, tcfg):
+    out = tr.rasterize(*(torch.from_numpy(x) for x in arrs), torch.from_numpy(K_MAT), tcfg,
+                       with_stats=True, device="cpu")
+    return [x.numpy() for x in out]
+
+
+def _render_both(arrs, jcfg, tcfg):
+    return _jax_render(arrs, jcfg), _torch_render(arrs, tcfg)
+
+
+_MESHES = {
+    "cube": lambda: j_cube(0.08),
+    "ico3": lambda: j_ico(0.05, 3),
+    "ico4": lambda: j_ico(0.05, 4),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(mesh_name, binning):
+    """(scene arrays, JAX render) of a default-config scene, shared by the
+    tests below (each JAX compile of an interpreted kernel costs seconds)."""
+    arrs = _scene(_MESHES[mesh_name](), b=2 if mesh_name == "ico4" else 3)
+    kw = {"binning": binning}
+    if binning == "csr" and mesh_name == "cube":
+        kw["bin_pairs"] = N_FINE * arrs[2].shape[1]  # giant faces: exact budget
+    return arrs, kw, _jax_render(arrs, _cfgs(**kw)[0])
+
+
+def _assert_images(t, j, min_cover=0.05):
+    np.testing.assert_array_equal(t[1] > 0, j[1] > 0, err_msg="hit mask")
+    np.testing.assert_allclose(t[1], j[1], atol=1e-5, rtol=0, err_msg="depth")
+    np.testing.assert_allclose(t[0], j[0], atol=5e-3, rtol=0, err_msg="rgb")
+    assert int(t[2]) == int(j[2]), ("dropped", int(t[2]), int(j[2]))
+    assert (t[1] > 0).mean() > min_cover
+
+
+@pytest.mark.parametrize(
+    "mesh_name,binning",
+    [("cube", "dense"), ("ico3", "dense"), ("ico3", "csr"), ("ico4", "csr"), ("cube", "csr")],
+)
+def test_rasterize_matches_jax(mesh_name, binning):
+    arrs, kw, j = _reference(mesh_name, binning)
+    _assert_images(_torch_render(arrs, _cfgs(**kw)[1]), j)
+
+
+def test_padded_cube_tuned_csr_path():
+    """The big-face cube padded past 2048 faces (test_csr_raster.py:121-173):
+    both tuners size the same budget, and the CSR renders agree with 0
+    dropped pairs."""
+    bank = JMeshBank.from_meshes([j_cube(0.08)], pad_multiple=2560)
+    bank_arrays = (bank.vertices, bank.colors, bank.faces, bank.face_valid)
+    jcfg, tcfg = _cfgs(active_tiles=128)
+    j_e = j_tune(JEngineConfig(height=96, width=128, raster=jcfg),
+                 tuple(jnp.asarray(x) for x in bank_arrays), K_MAT)
+    t_e = t_tune(TEngineConfig(height=96, width=128, raster=tcfg), bank_arrays, K_MAT)
+    assert (t_e.raster.bin_pairs, t_e.raster.csr_tiers) == (j_e.raster.bin_pairs, j_e.raster.csr_tiers)
+    arrs = _scene(j_cube(0.08), b=2, seed=3, pad=2560)
+    j, t = _render_both(arrs, j_e.raster, t_e.raster)
+    _assert_images(t, j)
+    assert int(t[2]) == 0
+
+
+def test_mixed_mesh_tiers_match_jax():
+    """Heavy-tailed mesh: the tuner emits the same multi-tier budget as the
+    JAX tuner and the tiered CSR render agrees with JAX's."""
+    mesh = j_mixed(0)
+    bank = JMeshBank.from_meshes([mesh], pad_multiple=64)
+    bank_arrays = (bank.vertices, bank.colors, bank.faces, bank.face_valid)
+    jcfg, tcfg = _cfgs(active_tiles=128)
+    j_e = j_tune(JEngineConfig(height=96, width=128, raster=jcfg),
+                 tuple(jnp.asarray(x) for x in bank_arrays), K_MAT, z_min=0.45)
+    t_e = t_tune(TEngineConfig(height=96, width=128, raster=tcfg), bank_arrays, K_MAT, z_min=0.45)
+    assert len(t_e.raster.csr_tiers) >= 2
+    assert (t_e.raster.bin_pairs, t_e.raster.csr_tiers) == (j_e.raster.bin_pairs, j_e.raster.csr_tiers)
+    arrs = _scene(mesh, b=2, seed=5)
+    arrs[4][:, 2, 3] = 0.55
+    j, t = _render_both(arrs, j_e.raster, t_e.raster)
+    _assert_images(t, j)
+
+
+def test_csr_pack4_matches_pack1_and_jax():
+    """Quad packing is a scheduling change: pack 4 and pack 1 give the same
+    image bit for bit in the port, and match JAX's pack-4 render."""
+    arrs, _, j = _reference("ico3", "csr")
+    t4 = _torch_render(arrs, _cfgs(binning="csr", csr_pack=4)[1])
+    t1 = _torch_render(arrs, _cfgs(binning="csr", csr_pack=1)[1])
+    np.testing.assert_array_equal(t1[1], t4[1])
+    np.testing.assert_array_equal(t1[0], t4[0])
+    _assert_images(t4, j)
+
+
+@pytest.mark.parametrize("binning", ["dense", "csr"])
+def test_backface_cull_matches_jax(binning):
+    """Culling backfaces of the closed ico3 leaves JAX's image unchanged."""
+    arrs, kw, j = _reference("ico3", binning)
+    _assert_images(_torch_render(arrs, _cfgs(**kw, backface_cull=-1)[1]), j)
+
+
+@pytest.mark.parametrize("binning", ["dense", "csr"])
+def test_raster_batch_chunk(binning):
+    """Sub-batches (3 = 2 + 1) give the single-shot image exactly and match
+    JAX's render."""
+    arrs, kw, j = _reference("ico3", binning)
+    t = _torch_render(arrs, _cfgs(**kw, raster_batch_chunk=2)[1])
+    t_one = _torch_render(arrs, _cfgs(**kw)[1])
+    np.testing.assert_array_equal(t[1], t_one[1])
+    np.testing.assert_array_equal(t[0], t_one[0])
+    _assert_images(t, j)
+
+
+def test_dropped_pairs_equal_jax():
+    """A starved CSR budget (1 tile per face on giant cube faces) drops the
+    same pair count in the port's render, the port's csr_dropped_pairs and
+    the JAX package's csr_dropped_pairs."""
+    arrs = _scene(j_cube(0.08), b=2)
+    f = arrs[2].shape[1]
+    jcfg, tcfg = _cfgs(binning="csr", bin_pairs=f, csr_pack=1)
+    t = _torch_render(arrs, tcfg)
+    v, _, faces, fvalid, pose = arrs
+    t_q = tr.csr_dropped_pairs(*(torch.from_numpy(x) for x in (v, faces, fvalid, pose, K_MAT)),
+                               tcfg, device="cpu")
+    j_q = jr.csr_dropped_pairs(*(jnp.asarray(x) for x in (v, faces, fvalid, pose, K_MAT)), jcfg)
+    assert int(t[2]) == int(t_q) == int(j_q) > 0
+
+
+def test_bin_faces_csr_matches_jax(rng):
+    """CSR pair lists (unit ids, offsets, counts, dropped) equal JAX's for
+    random triangles, at pack 1 and 4 and under a starved budget."""
+    b, f = 2, 64
+    fu = rng.uniform(-20, 148, (b, f, 3)).astype(np.float32)
+    fv = rng.uniform(-20, 116, (b, f, 3)).astype(np.float32)
+    valid = rng.rand(b, f) > 0.2
+    for kw in (dict(csr_pack=1, bin_pairs=N_FINE * f), dict(csr_pack=4), dict(csr_pack=1, bin_pairs=2 * f)):
+        jcfg, tcfg = _cfgs(**kw)
+        t_out = tr.bin_faces_csr(torch.from_numpy(fu), torch.from_numpy(fv), torch.from_numpy(valid),
+                                 tcfg, th=16, tw=8)
+        j_out = jax.vmap(lambda a, c, d: jr.bin_faces_csr(a, c, d, jcfg, th=16, tw=8))(
+            jnp.asarray(fu), jnp.asarray(fv), jnp.asarray(valid))
+        for name, x, y in zip(("sorted_unit", "offsets", "counts", "dropped"), t_out, j_out):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y), err_msg=f"{kw} {name}")
+
+
+def test_bin_faces_dense_matches_jax(rng):
+    b, f = 2, 40
+    fu = rng.uniform(-20, 148, (b, f, 3)).astype(np.float32)
+    fv = rng.uniform(-20, 116, (b, f, 3)).astype(np.float32)
+    valid = rng.rand(b, f) > 0.2
+    jcfg, tcfg = _cfgs(max_faces_per_tile=16, tile_h=16, tile_w=32)
+    tf, cnt = tr.bin_faces(torch.from_numpy(fu), torch.from_numpy(fv), torch.from_numpy(valid), tcfg)
+    jtf, jcnt = jax.vmap(lambda a, c, d: jr.bin_faces(a, c, d, jcfg))(
+        jnp.asarray(fu), jnp.asarray(fv), jnp.asarray(valid))
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jtf))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt))
+
+
+def test_worklist_stable_sort_equals_topk(rng):
+    """The port's work list (torch.sort(-counts, stable=True)) is exactly
+    jax.lax.top_k's order on tie-heavy counts."""
+    counts = rng.randint(0, 4, 300).astype(np.int32)
+    neg, order = torch.sort(-torch.from_numpy(counts), stable=True)
+    j_vals, j_ids = jax.lax.top_k(jnp.asarray(counts), 120)
+    np.testing.assert_array_equal(order[:120].numpy(), np.asarray(j_ids))
+    np.testing.assert_array_equal((-neg[:120]).numpy(), np.asarray(j_vals))
+
+
+def test_face_records_and_projection_match_jax(rng):
+    b, v = 2, 50
+    verts = rng.uniform(-0.05, 0.05, (b, v, 3)).astype(np.float32)
+    pose = _scene(j_cube(0.08), b=b)[4]
+    kb = np.broadcast_to(K_MAT, (b, 3, 3)).copy()
+    t_uvz = tr.project_vertices(*(torch.from_numpy(x) for x in (verts, pose, kb)))
+    j_uvz = jr.project_vertices(*(jnp.asarray(x) for x in (verts, pose, kb)))
+    for x, y in zip(t_uvz, j_uvz):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-6, atol=1e-4)
+    n = 30
+    fu = rng.uniform(0, 128, (n, 3)).astype(np.float32)
+    fv = rng.uniform(0, 96, (n, 3)).astype(np.float32)
+    fq = rng.uniform(1.5, 2.5, (n, 3)).astype(np.float32)
+    fcol = rng.uniform(0, 255, (n, 3, 3)).astype(np.float32)
+    valid = rng.rand(n) > 0.2
+    t_rec = tr.build_face_records(*(torch.from_numpy(x) for x in (fu, fv, fq, fcol, valid)))
+    j_rec = jr.build_face_records(*(jnp.asarray(x) for x in (fu, fv, fq, fcol, valid)))
+    np.testing.assert_allclose(t_rec.numpy(), np.asarray(j_rec), rtol=1e-5, atol=1e-3)
+
+
+def test_mesh_builders_match_jax():
+    for tm, jm in [(tmesh.make_test_cube(0.08), j_cube(0.08)),
+                   (tmesh.make_icosphere(0.05, 3), j_ico(0.05, 3)),
+                   (tmesh.make_mixed_detail_mesh(1), j_mixed(1))]:
+        for name in ("vertices", "faces", "colors"):
+            np.testing.assert_array_equal(getattr(tm, name), getattr(jm, name))
+    tb = tmesh.MeshBank.from_meshes([tmesh.make_test_cube(0.08), tmesh.make_icosphere(0.05, 2)], 128)
+    jb = JMeshBank.from_meshes([j_cube(0.08), j_ico(0.05, 2)], 128)
+    for name in ("vertices", "colors", "faces", "face_valid", "num_vertices", "num_faces"):
+        np.testing.assert_array_equal(getattr(tb, name), getattr(jb, name))
+
+
+def test_wrappers_dispatch_on_device():
+    """CPU tensors take the plain twin (no launch counted); other devices
+    are refused rather than silently computed elsewhere."""
+    tk.reset_launch_counts()
+    rec = torch.zeros((4, 32))
+    rec[:, 4] = -1e30
+    out = tk.tile_raster(rec, torch.zeros((2, 4), dtype=torch.int32),
+                         torch.tensor([1, 0], dtype=torch.int32),
+                         torch.zeros((2, 2), dtype=torch.int32), 8, 16)
+    assert out.shape == (2, 4, 128) and (out[:, 0] == -1e30).all()
+    out = tk.csr_raster(rec, torch.zeros(4, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+                        torch.tensor([1, 0], dtype=torch.int32), torch.zeros((2, 2), dtype=torch.int32),
+                        torch.zeros(2, dtype=torch.int32), 4, 8)
+    assert out.shape == (2, 5, 128) and (out[:, 1] == 1e30).all()
+    assert tk.csr_raster.launches == 0 and tk.tile_raster.launches == 0
+    with pytest.raises(ValueError):
+        tk.tile_raster(rec.to("meta"), torch.zeros((2, 4), dtype=torch.int32, device="meta"),
+                       torch.zeros(2, dtype=torch.int32, device="meta"),
+                       torch.zeros((2, 2), dtype=torch.int32, device="meta"), 8, 16)
+
+
+def test_cuda_required_unless_cpu_requested():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device resolves")
+    arrs = _scene(j_cube(0.08), b=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tr.rasterize(*(torch.from_numpy(x) for x in arrs), torch.from_numpy(K_MAT),
+                     tr.RasterConfig(**BASE))
+
+
+def test_engine_configs_copy_across():
+    """Config objects copy field for field between the two packages."""
+    assert [f.name for f in dataclasses.fields(tr.RasterConfig)] == [
+        f.name for f in dataclasses.fields(jr.RasterConfig)]
+    assert [f.name for f in dataclasses.fields(TEngineConfig)] == [
+        f.name for f in dataclasses.fields(JEngineConfig)]
