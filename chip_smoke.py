@@ -8,26 +8,36 @@ Phases (each raises on failure; the script then exits non-zero):
      version and TF32 settings (both set off: the port's numbers are fp32),
      and the nvcc build of csrc/raster.cu;
   2. each raster kernel against its plain PyTorch twin on the card, on the
-     kernel inputs of one render of the main path's scenes (480x640;
-     20,480-face icospheres for csr_raster, the 320-face scene for
-     tile_raster): hit masks and face ids exact, q to 1e-6, rgb to 5e-3;
-     kernel and twin times (CUDA events, median);
+     kernel inputs of one render of its path's scene (480x640; 20,480-face
+     icospheres, batch 16 for csr_raster and batch 4 for csr_planes_raster,
+     the 320-face scene for tile_raster): hit masks and face ids exact, q to
+     1e-6, rgb to 5e-3; kernel and twin times (CUDA events, median); and
+     csr_planes_raster equal to csr_raster on the same render;
   3. the main path on the CSR kernel: refine(), 4 iterations, batch 16,
      20,480-face meshes, FAST_TEST network (encoder + SE(3) head), seeded
      random weights with a small nonzero translation head, one warm-up and
      five chained calls;
   4. the main path on the dense kernel: the 320-face scene, batch 2, the
      full network (flow and mask heads), the same protocol;
-  5. where one call's device time goes on each path (torch.profiler: time
-     by kernel family, the device's idle share, the top kernels);
-  6. small-input reference checks: the card's renders and refinement equal
-     the CPU path (the one the tests hold to the JAX package).
+  5. the training path on csr_planes_raster (planes64): make_train_step
+     at 480x640, batch 4, 4 inner iterations, the full network with seeded
+     random weights, the lm6d_ape_iter4_8epoch recipe's losses and SGD
+     (plus global-norm clipping, see RECIPE_TCFG); one warm-up and five
+     timed steps;
+  6. where one call's (or step's) device time goes on each path
+     (torch.profiler: time by kernel family, the device's idle share, the
+     top kernels), and one batch-16 CSR render timed with slots8 and with
+     planes64;
+  7. small-input reference checks: the card's renders, refinement and
+     training step equal the CPU path (the one the tests hold to the JAX
+     package).
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -41,8 +51,16 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from deepim_tpu_torch.config import TrainConfig, TrainIterConfig  # noqa: E402
+from deepim_tpu_torch.engine import (  # noqa: E402
+    TrainState,
+    lr_steps_from_config,
+    make_optimizer,
+    make_train_step,
+    warmup_multifactor_schedule,
+)
 from deepim_tpu_torch.engine.refine import Observation, refine  # noqa: E402
-from deepim_tpu_torch.engine.scene import LINEMOD_K, build_scene  # noqa: E402
+from deepim_tpu_torch.engine.scene import LINEMOD_K, build_scene, train_batch  # noqa: E402
 from deepim_tpu_torch.models.flownet import FlowNetDeepIM  # noqa: E402
 from deepim_tpu_torch.ops.masks import box_fill  # noqa: E402
 from deepim_tpu_torch.render import raster_kernels as rk  # noqa: E402
@@ -54,15 +72,37 @@ N_CALLS = 5
 # 3.35 TB/s, fp32 outside the tensor cores at 67 TFLOP/s.  A face-pixel
 # evaluation is 22 fp32 operations (2 subtractions for dx/dy, 3 edge planes
 # 10, the 1/z plane 4, its clamp 2, the inside test 3, the depth test 1).
+# csr_planes_raster reads 20 lanes (80 bytes) of raw row per face-tile pair
+# and derives the planes with 78 operations per pair (area and sign 13,
+# edge planes 12, the 1/z plane 10 and its clamp bounds 4, three colour
+# planes 39).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS_PER_PAIR = 22
 REC_BYTES = 4 * rk.REC_WIDTH
-PLAIN = {"csr_raster": rk.csr_raster_plain, "tile_raster": rk.tile_raster_plain}
+RAW_BYTES = 4 * 20
+DERIVE_OPS = 78
+PLAIN = {"csr_raster": rk.csr_raster_plain, "csr_planes_raster": rk.csr_planes_raster_plain,
+         "tile_raster": rk.tile_raster_plain}
 REPLACES = {
     "csr_raster": "deepim_tpu/render/pallas_raster.py:117 (_csr_chunk_kernel, slots8)",
+    "csr_planes_raster": "deepim_tpu/render/pallas_raster.py:240 (_csr_planes_kernel, planes64)",
     "tile_raster": "deepim_tpu/render/pallas_raster.py:66 (_tile_kernel)",
 }
+# The training recipe: experiments/deepim/cfgs/lm6d_ape_iter4_8epoch.yaml.
+# The recipe fine-tunes pretrained FlowNet weights, which the repo does not
+# hold; from seeded random weights its SGD diverges within three steps
+# (the summed 480x640 mask loss drives the encoder; pm_loss reached inf on
+# the H100), so the run adds the JAX package's from-scratch stabiliser,
+# global-norm clipping at 1.0 (experiments/benchmark_multiclass.py:121).
+TRAIN_B = 4           # TRAIN.BATCH_PAIRS
+TRAIN_ITER_SIZE = 4   # network.TRAIN_ITER_SIZE
+RECIPE_TICFG = TrainIterConfig(SE3_PM_LOSS=True, LW_PM=0.1, SE3_PM_LOSS_TYPE="L1",
+                               NUM_3D_SAMPLE=3000, LW_FLOW=0.25, LW_MASK=0.03)
+RECIPE_TCFG = TrainConfig(optimizer="sgd", warmup=True, warmup_lr=1e-5, warmup_step=200, lr=1e-4,
+                          lr_step="4,6", momentum=0.975, wd=5e-4, grad_clip=1.0, BATCH_PAIRS=TRAIN_B,
+                          FLOW_WEIGHT_TYPE="viz", UPDATE_MASK="box_gt")
+PIXEL_MEANS = (123.68, 116.779, 103.939)
 
 
 def log(msg: str) -> None:
@@ -96,20 +136,24 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 
 def bound(name: str, args) -> tuple[float, str, dict]:
     """Least time for this launch's work: bytes it must move (each face
-    record once per tile it is binned to, the lists, the output) at
-    3.35 TB/s, or its face-pixel operations at 67 TFLOP/s."""
-    if name == "csr_raster":
+    record or raw row once per tile it is binned to, the lists, the output)
+    at 3.35 TB/s, or its face-pixel (and plane-derivation) operations at
+    67 TFLOP/s."""
+    derive = 0
+    if name in ("csr_raster", "csr_planes_raster"):
         _, _, _, seg_count, _, _, pack, _ = args
         n_items, pix = seg_count.numel(), rk.CSR_TILE_PIXELS
         units = int(seg_count.sum())
         faces = units * pack
-        nbytes = faces * REC_BYTES + units * 4 + n_items * (3 * 4 + 8) + n_items * 5 * pix * 4
+        row = REC_BYTES if name == "csr_raster" else RAW_BYTES
+        derive = 0 if name == "csr_raster" else faces * DERIVE_OPS
+        nbytes = faces * row + units * 4 + n_items * (3 * 4 + 8) + n_items * 5 * pix * 4
     else:
         _, _, counts, _, th, tw = args
         n_items, pix = counts.numel(), th * tw
         faces = int(counts.sum())
         nbytes = faces * (REC_BYTES + 4) + n_items * (4 + 8) + n_items * 4 * pix * 4
-    ops = faces * pix * OPS_PER_PAIR
+    ops = faces * pix * OPS_PER_PAIR + derive
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     info = {"work_items": n_items, "face_tile_pairs": faces, "bytes": nbytes, "ops": ops}
@@ -125,8 +169,9 @@ def check_kernel(name: str, args, card: str) -> dict:
     hit = q > 0
     if not torch.equal(hit, q_ref > 0):
         raise AssertionError(f"{name}: hit masks differ in {int((hit != (q_ref > 0)).sum())} px")
-    rgb_rows = slice(2, 5) if name == "csr_raster" else slice(1, 4)
-    if name == "csr_raster" and not torch.equal(out[:, 1], ref[:, 1]):
+    csr = name != "tile_raster"
+    rgb_rows = slice(2, 5) if csr else slice(1, 4)
+    if csr and not torch.equal(out[:, 1], ref[:, 1]):
         raise AssertionError(f"{name}: face ids differ in {int((out[:, 1] != ref[:, 1]).sum())} px")
     hit3 = hit[:, None].expand_as(out[:, rgb_rows])
     q_err = float((q - q_ref)[hit].abs().max()) if hit.any() else 0.0
@@ -141,7 +186,22 @@ def check_kernel(name: str, args, card: str) -> dict:
     log(f"[{name}] vs plain twin: {int(hit.sum())} hit px, max |dq| {q_err:.3g}, max |drgb| {rgb_err:.3g}, "
         f"max raw err {raw_err:.3g}; kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
         f"({b_by}; {info}) [{card}]")
-    return {"max_abs_err": raw_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    return {"max_abs_err": raw_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "out": out}
+
+
+def launch_counts() -> dict:
+    return {name: KERNELS[name].launches for name in KERNELS}
+
+
+def check_launches(label: str, counts: dict, expect: str, least: int) -> None:
+    """`expect` launched at least `least` times in this phase, no other
+    raster kernel at all."""
+    if counts[expect] < least:
+        raise AssertionError(f"{label}: {expect} launched {counts[expect]} times, want >= {least}")
+    other = {k: v for k, v in counts.items() if k != expect and v}
+    if other:
+        raise AssertionError(f"{label}: other raster kernels launched on this path: {other}")
 
 
 def make_model(pred_heads: bool, seed: int, dev, hw=(H, W)) -> FlowNetDeepIM:
@@ -173,13 +233,8 @@ def drive_main_path(label: str, scene, model, dev, card: str, expect: str, min_p
             times.append(time.perf_counter() - t0)
         poses.append(pose)
         dropped.append(stats["raster_dropped"])
-    counts = {"csr_raster": rk.csr_raster.launches, "tile_raster": rk.tile_raster.launches}
-    other = "tile_raster" if expect == "csr_raster" else "csr_raster"
-    calls = 1 + N_CALLS
-    if counts[expect] < min_per_call * calls:
-        raise AssertionError(f"{label}: {expect} launched {counts[expect]} times, want >= {min_per_call * calls}")
-    if counts[other]:
-        raise AssertionError(f"{label}: {other} launched {counts[other]} times on this path")
+    counts = launch_counts()
+    check_launches(label, counts, expect, min_per_call * (1 + N_CALLS))
     stack = torch.stack(poses).cpu().numpy()
     if not np.isfinite(stack).all():
         raise AssertionError(f"{label}: non-finite poses")
@@ -202,31 +257,39 @@ def drive_main_path(label: str, scene, model, dev, card: str, expect: str, min_p
 
 
 _FAMILIES = (
-    ("raster kernels", ("csr_raster", "tile_raster")),
-    ("convolutions", ("conv", "xmma", "fprop", "implicit", "winograd", "cudnn", "dgrad")),
+    ("raster kernels", ("csr_raster", "csr_planes_raster", "tile_raster")),
+    ("convolutions", ("conv", "xmma", "fprop", "implicit", "winograd", "cudnn", "dgrad", "wgrad",
+                      "bprop", "backward")),
     ("matmuls", ("gemm", "cutlass", "cublas", "bmm")),
     ("sort/scan", ("sort", "radix", "scan")),
 )
 
 
-def breakdown(label: str, scene, model, dev, card: str) -> None:
-    """Device time of one refine() call by kernel family (torch.profiler),
-    the device's idle share of the call's wall time, and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
+def refine_call(scene, model, dev):
+    """A closure running one refine() call of the scene."""
     k = torch.from_numpy(LINEMOD_K).to(dev)
     obs = Observation(scene.image, box_fill(scene.mask), None, None, k)
     pose = torch.from_numpy(scene.pose0).to(dev)
-    refine(model, obs, scene.meshes, pose, scene.ecfg, device=dev)
+    return lambda: refine(model, obs, scene.meshes, pose, scene.ecfg, device=dev)
+
+
+def breakdown(label: str, fn, card: str) -> None:
+    """Device time of one fn() call by kernel family (torch.profiler), the
+    device's idle share of the call's wall time, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        refine(model, obs, scene.meshes, pose, scene.ecfg, device=dev)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # record_function ranges (Optimizer.step#SGD.step) carry the device
+        # time of the kernels inside them: skip them, or it counts twice.
+        if evt.device_type != torch.autograd.DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         us = getattr(evt, "self_device_time_total", None)
         us = evt.self_cuda_time_total if us is None else us
@@ -245,6 +308,127 @@ def breakdown(label: str, scene, model, dev, card: str) -> None:
         f"{busy / 1e3:.2f} ms (idle share {1 - busy / wall_us:.3f}); {shares} [{card}]")
     for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[{label} breakdown]   {us / 1e3:8.3f} ms  {key[:110]}")
+
+
+def recipe_optimizer(model):
+    """The recipe's SGD with its warmup schedule (update counts; the lr
+    steps of epochs 4 and 6 lie far past this run)."""
+    t = RECIPE_TCFG
+    steps = lr_steps_from_config(t.lr_step, epoch_size=10_000)
+    return make_optimizer(model.parameters(), t,
+                          warmup_multifactor_schedule(t.lr, steps, 0.1, t.warmup, t.warmup_lr, t.warmup_step))
+
+
+def train_setup(dev):
+    """The training path's scene, batch and engine config: 480x640, batch
+    4, 20,480-face icospheres, box_gt masks, the recipe's pixel means and
+    flow normalisation, CSR renders through csr_planes_raster."""
+    sc = build_scene(TRAIN_B, H, W, LINEMOD_K, num_iters=TRAIN_ITER_SIZE, mesh_detail=5,
+                     update_mask="box_gt", device=dev)
+    ecfg = dataclasses.replace(
+        sc.ecfg, raster=dataclasses.replace(sc.ecfg.raster, csr_kernel="planes64"),
+        pixel_means=PIXEL_MEANS, normalize_flow=20.0,
+    )
+    return sc, ecfg, train_batch(sc, LINEMOD_K, RECIPE_TICFG.NUM_3D_SAMPLE)
+
+
+def drive_train(sc, ecfg, batch, dev, card: str) -> dict:
+    """One warm-up and N_CALLS timed train steps with the launch counters
+    zeroed just before and read just after; checks losses, updates, the
+    update count, dropped pairs and which raster kernel ran."""
+    model = make_model(True, 2, dev, hw=(ecfg.height, ecfg.width))
+    state = TrainState(model, recipe_optimizer(model))
+    step = make_train_step(ecfg, RECIPE_TICFG, RECIPE_TCFG.FLOW_WEIGHT_TYPE, device=dev)
+    before = [p.detach().clone() for p in model.parameters()]
+    label = "training path, planes64 (20,480-face meshes, full network, batch 4 x 4 inner)"
+    history, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    for i in range(1 + N_CALLS):  # step 0 is the warm-up
+        t0 = time.perf_counter()
+        state, metrics, _ = step(state, batch, sc.bank_arrays)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+        history.append({k: v.cpu() for k, v in metrics.items()})
+    counts = launch_counts()
+    n_updates = TRAIN_ITER_SIZE * (1 + N_CALLS)
+    check_launches(label, counts, "csr_planes_raster", n_updates)
+    for key in ("pm_loss", "flow_loss", "mask_loss", "total"):
+        vals = torch.stack([h[key] for h in history])
+        if vals.shape != (1 + N_CALLS, TRAIN_ITER_SIZE) or not torch.isfinite(vals).all():
+            raise AssertionError(f"{label}: {key} not finite per inner iteration: {vals}")
+    if state.step != n_updates or state.optimizer.count != n_updates:
+        raise AssertionError(f"{label}: {state.step} iterations, {state.optimizer.count} updates, "
+                             f"want {n_updates}")
+    n_drop = int(sum(int(h["raster_dropped"].sum()) for h in history))
+    if n_drop:
+        raise AssertionError(f"{label}: CSR binning dropped {n_drop} face-tile pairs")
+    moved = sum(not torch.equal(a, p.detach()) for a, p in zip(before, model.parameters()))
+    if moved != len(before):
+        raise AssertionError(f"{label}: {len(before) - moved} parameter tensors did not change")
+    ms = [t * 1e3 for t in times]
+    first = {k: float(v[0]) for k, v in history[0].items() if k != "raster_dropped"}
+    last = {k: float(v[-1]) for k, v in history[-1].items() if k != "raster_dropped"}
+    log(f"[{label}] {statistics.median(ms):.2f} ms/step median (min {min(ms):.2f}, max {max(ms):.2f}), "
+        f"{TRAIN_B * len(times) / sum(times):.2f} samples/s, {n_updates} updates; launches {counts}; "
+        f"first losses {first}; last losses {last}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    return {"counts": counts, "step": lambda: step(state, batch, sc.bank_arrays)}
+
+
+def render_comparison(scene, dev, card: str) -> None:
+    """One batch-16 CSR render of the eval scene, whole (glue included),
+    with slots8 and with planes64: equal images, CUDA-event medians timed
+    in turns (slots8, planes64, planes64, slots8)."""
+    m = scene.meshes
+    args = (m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(scene.pose0).to(dev),
+            torch.from_numpy(LINEMOD_K).to(dev))
+    cfgs = {k: dataclasses.replace(scene.ecfg.raster, csr_kernel=k) for k in ("slots8", "planes64")}
+    outs = {k: rasterize(*args, c, corners=m.corners, corner_colors=m.corner_colors, device=dev)
+            for k, c in cfgs.items()}
+    for a, b in zip(outs["slots8"], outs["planes64"]):
+        if not torch.equal(a, b):
+            raise AssertionError("slots8 and planes64 renders differ")
+    ms = {k: [] for k in cfgs}
+    for k in ("slots8", "planes64", "planes64", "slots8"):
+        ms[k].append(cuda_ms(lambda: rasterize(*args, cfgs[k], corners=m.corners,
+                                               corner_colors=m.corner_colors, device=dev), reps=10))
+    log(f"[render, batch {scene.image.shape[0]} CSR] slots8 {ms['slots8']} ms, planes64 {ms['planes64']} ms "
+        f"per whole render (CUDA-event medians, two turns each); images equal [{card}]")
+
+
+def train_reference_check(dev) -> None:
+    """One 2-inner-iteration train step of the 64x64 scene on the card and
+    on the CPU, same weights: losses to rtol 1e-4, parameters to 1e-6 plus
+    1% of each tensor's update, final pose to 1e-5 (cuDNN sums in another
+    order than the CPU; TF32 is off)."""
+    k64 = np.array([[80.0, 0, 32.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
+    sc = build_scene(2, 64, 64, k64, num_iters=2, update_mask="box_gt", device="cpu")
+    batch = train_batch(sc, k64, 16)
+    ticfg = TrainIterConfig(SE3_PM_LOSS=True, LW_PM=0.1, NUM_3D_SAMPLE=16, LW_FLOW=0.25, LW_MASK=0.03)
+    model0 = make_model(True, 5, "cpu", hw=(64, 64))
+    out = []
+    for d in ("cpu", dev):
+        model = make_model(True, 5, d, hw=(64, 64))
+        opt = make_optimizer(model.parameters(), TrainConfig(), warmup_multifactor_schedule(1e-3, (1000,)))
+        _, metrics, pose = make_train_step(sc.ecfg, ticfg, "viz", device=d)(TrainState(model, opt), batch,
+                                                                          sc.bank_arrays)
+        out.append(({k: v.cpu() for k, v in metrics.items()},
+                    {k: v.cpu() for k, v in model.state_dict().items()}, pose.cpu()))
+    (m_c, p_c, pose_c), (m_g, p_g, pose_g) = out
+    loss_err = max(float(((m_g[k] - m_c[k]) / m_c[k]).abs().max())
+                   for k in ("pm_loss", "flow_loss", "mask_loss", "total"))
+    p0 = model0.state_dict()
+    par_err = max(float((p_g[k] - p_c[k]).abs().max()) / (1e-6 + 1e-2 * float((p_c[k] - p0[k]).abs().max()))
+                  for k in p_c)
+    pose_err = float((pose_g - pose_c).abs().max())
+    if loss_err > 1e-4 or par_err > 1.0 or pose_err > 1e-5:
+        raise AssertionError(f"64x64 train step: card vs CPU loss rel err {loss_err}, parameter err "
+                             f"{par_err} of its tolerance, pose err {pose_err}")
+    log(f"[reference] 64x64 train step, 2 inner iterations: card vs CPU loss rel err {loss_err:.3g}, "
+        f"parameter err {par_err:.3g} of tolerance, pose err {pose_err:.3g}")
 
 
 def small_reference_checks(dev) -> None:
@@ -276,6 +460,7 @@ def small_reference_checks(dev) -> None:
     if not torch.isfinite(pose_g).all() or err > 1e-4:
         raise AssertionError(f"64x64 refine: card vs CPU pose err {err}")
     log(f"[reference] 64x64 refine, 2 iterations: card vs CPU pose err {err:.3g}")
+    train_reference_check(dev)
 
 
 def main() -> int:
@@ -301,33 +486,51 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
 
-    # 2. Kernels against their plain twins at the main path's shapes.
+    # 2. Kernels against their plain twins at their paths' shapes.
     k = torch.from_numpy(LINEMOD_K)
     csr_scene = build_scene(16, H, W, LINEMOD_K, num_iters=4, mesh_detail=5, active_tiles=32, device=dev)
     dense_scene = build_scene(2, H, W, LINEMOD_K, num_iters=4, mesh_detail=2, device=dev)
+    train_scene, train_ecfg, batch = train_setup(dev)
     results = {}
-    for name, sc in (("csr_raster", csr_scene), ("tile_raster", dense_scene)):
+    for name, sc, ecfg in (("csr_raster", csr_scene, csr_scene.ecfg),
+                           ("csr_planes_raster", train_scene, train_ecfg),
+                           ("tile_raster", dense_scene, dense_scene.ecfg)):
         m = sc.meshes
         launches = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(sc.pose0),
-                                 k, sc.ecfg.raster, corners=m.corners, corner_colors=m.corner_colors,
+                                 k, ecfg.raster, corners=m.corners, corner_colors=m.corner_colors,
                                  device=dev)
         got, args = launches[0]
         if got != name:
             raise AssertionError(f"scene meant for {name} plans {got}")
         results[name] = check_kernel(name, args, card)
+    # The same training render through csr_raster: the two CSR kernels agree.
+    m = train_scene.meshes
+    (got, args), = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid,
+                                 torch.from_numpy(train_scene.pose0), k, train_scene.ecfg.raster,
+                                 corners=m.corners, corner_colors=m.corner_colors, device=dev)
+    slots8 = KERNELS[got](*args)
+    if got != "csr_raster" or not torch.equal(slots8, results["csr_planes_raster"]["out"]):
+        raise AssertionError("csr_planes_raster and csr_raster differ on the training render")
+    log(f"[csr_planes_raster] equals csr_raster on the training render (hits, face ids, q, rgb) [{card}]")
 
-    # 3./4. The main path on each raster kernel.
+    # 3./4. The eval main path on each raster kernel; 5. the training path.
     csr_model, dense_model = make_model(False, 0, dev), make_model(True, 1, dev)
     counts_csr = drive_main_path("main path, CSR (20,480-face meshes, FAST_TEST)", csr_scene,
                                  csr_model, dev, card, "csr_raster", min_per_call=4 * 2)
     counts_dense = drive_main_path("main path, dense (320-face meshes, full network)", dense_scene,
                                    dense_model, dev, card, "tile_raster", min_per_call=4)
+    train = drive_train(train_scene, train_ecfg, batch, dev, card)
     results["csr_raster"]["launches"] = counts_csr["csr_raster"]
     results["tile_raster"]["launches"] = counts_dense["tile_raster"]
-    breakdown("CSR path", csr_scene, csr_model, dev, card)
-    breakdown("dense path", dense_scene, dense_model, dev, card)
+    results["csr_planes_raster"]["launches"] = train["counts"]["csr_planes_raster"]
 
-    # 6. Small-input reference checks.
+    # 6. Where the time goes.
+    breakdown("CSR path", refine_call(csr_scene, csr_model, dev), card)
+    breakdown("dense path", refine_call(dense_scene, dense_model, dev), card)
+    breakdown("training step", train["step"], card)
+    render_comparison(csr_scene, dev, card)
+
+    # 7. Small-input reference checks.
     small_reference_checks(dev)
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")

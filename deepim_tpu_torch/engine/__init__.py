@@ -1,3 +1,11 @@
+from deepim_tpu_torch.engine.losses import (
+    flow_loss,
+    mask_loss,
+    point_matching_loss,
+    se3_dist_loss,
+    smooth_l1,
+)
+from deepim_tpu_torch.engine.lr_schedule import lr_steps_from_config, warmup_multifactor_schedule
 from deepim_tpu_torch.engine.refine import (
     EngineConfig,
     MeshBuffers,
@@ -7,8 +15,21 @@ from deepim_tpu_torch.engine.refine import (
     render_at_pose,
     tune_raster_for_bank,
 )
+from deepim_tpu_torch.engine.train import (
+    Optimizer,
+    TrainBatch,
+    TrainState,
+    compute_losses,
+    flow_weights_from_valid,
+    make_optimizer,
+    make_train_step,
+)
 
 __all__ = [
+    "flow_loss", "mask_loss", "point_matching_loss", "se3_dist_loss", "smooth_l1",
+    "lr_steps_from_config", "warmup_multifactor_schedule",
     "EngineConfig", "MeshBuffers", "Observation", "refine", "refine_step",
     "render_at_pose", "tune_raster_for_bank",
+    "Optimizer", "TrainBatch", "TrainState", "compute_losses", "flow_weights_from_valid",
+    "make_optimizer", "make_train_step",
 ]

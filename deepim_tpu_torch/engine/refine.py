@@ -197,14 +197,19 @@ class MeshBuffers(NamedTuple):
     @staticmethod
     def gather(bank_arrays, class_index, device="cuda") -> "MeshBuffers":
         """bank_arrays: dict with vertices/colors/faces/face_valid, or that
-        4-tuple, of numpy arrays or tensors; class_index: (B,) ints."""
+        4-tuple, of numpy arrays or tensors on any device; class_index:
+        (B,) ints (numpy or a tensor on any device).  Each array is indexed
+        where it lies, then moved to `device`."""
         dev = resolve_device(device)
         if isinstance(bank_arrays, dict):
             arrs = [bank_arrays[k] for k in ("vertices", "colors", "faces", "face_valid")]
         else:
             arrs = list(bank_arrays[:4])
-        idx = torch.as_tensor(np.asarray(class_index), dtype=torch.long)
-        out = [torch.as_tensor(np.asarray(a))[idx].to(dev) for a in arrs]
+        idx = torch.as_tensor(class_index).long()
+        out = []
+        for a in arrs:
+            a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+            out.append(a[idx.to(a.device)].to(dev))
         return MeshBuffers(*out).expand_corners()
 
     def to(self, device) -> "MeshBuffers":
@@ -222,6 +227,12 @@ class Observation(NamedTuple):
 
     def to(self, device) -> "Observation":
         return Observation(*(None if x is None else x.to(device) for x in self))
+
+    @staticmethod
+    def from_batch(batch) -> "Observation":
+        """The observation of a training batch (engine/train.py TrainBatch)."""
+        return Observation(batch.image_observed, batch.mask_observed, batch.mask_gt_observed,
+                           batch.depth_observed, batch.k)
 
 
 def render_at_pose(meshes: MeshBuffers, pose, k, ecfg: EngineConfig, with_stats: bool = False,
@@ -246,7 +257,9 @@ def render_at_pose(meshes: MeshBuffers, pose, k, ecfg: EngineConfig, with_stats:
 
 def refine_step(model, obs: Observation, meshes: MeshBuffers, pose, ecfg: EngineConfig,
                 iter_index: int | None = None, device="cuda"):
-    """One render -> zoom -> match -> update iteration.
+    """One render -> zoom -> match -> update iteration.  Differentiable
+    with respect to the model's parameters (the training losses call it
+    with autograd on); the render and the zoom crop carry no gradient.
 
     Returns (pose_new (B, 3, 4), aux dict with the network outputs, the zoom
     factor, the rendered buffers and 'raster_dropped')."""

@@ -9,6 +9,8 @@ mesh_detail >= 4 the CSR budget is 4 tiles per face plus the pack spread
 per unit, faces are backface-culled (the icospheres are closed and wound
 to negative screen area) and the raster runs in sub-batches of 8.
 mesh_kind='mixed' uses heavy-tailed meshes with a tuned, tiered budget.
+train_batch turns a scene into a TrainBatch (observation at pose_gt,
+source pose pose0).
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from scipy.spatial.transform import Rotation
 
 from deepim_tpu_torch.device import resolve_device
 from deepim_tpu_torch.engine.refine import EngineConfig, MeshBuffers, render_at_pose, tune_raster_for_bank
+from deepim_tpu_torch.engine.train import TrainBatch
+from deepim_tpu_torch.ops.masks import box_fill
 from deepim_tpu_torch.render.mesh import MeshBank, make_icosphere, make_mixed_detail_mesh, make_test_cube
 from deepim_tpu_torch.render.rasterizer import RasterConfig, _csr_pack_for
 
@@ -40,6 +44,7 @@ class Scene:
     image: torch.Tensor      # (B, 3, H, W) render at pose_gt
     depth: torch.Tensor      # (B, 1, H, W)
     mask: torch.Tensor       # (B, 1, H, W)
+    num_vertices: np.ndarray | None = None  # (B,) real vertices of each sample's mesh
 
 
 def build_scene(b: int, h: int, w: int, k_mat, num_iters: int, update_mask: str = "box_rendered",
@@ -103,4 +108,33 @@ def build_scene(b: int, h: int, w: int, k_mat, num_iters: int, update_mask: str 
         meshes, torch.from_numpy(pose_gt), torch.from_numpy(np.asarray(k_mat, np.float32)),
         ecfg, device=dev,
     )
-    return Scene(ecfg, bank_arrays, cls_idx, meshes, pose_gt, pose0, img, depth, mask)
+    return Scene(ecfg, bank_arrays, cls_idx, meshes, pose_gt, pose0, img, depth, mask,
+                 bank.num_vertices[cls_idx])
+
+
+def train_batch(scene: Scene, k_mat, num_3d_sample: int) -> TrainBatch:
+    """The scene as one training batch, on the scene's device: box-filled
+    observed mask, the rendered mask as gt mask, its depth as gt depth,
+    pose0 as source and pose_gt as target pose.  points_model is each
+    mesh's first num_3d_sample vertices, zero-padded with weight 0."""
+    dev = scene.image.device
+    b = scene.image.shape[0]
+    n_v = scene.meshes.vertices.shape[1]
+    n = min(num_3d_sample, n_v)
+    points = torch.zeros((b, num_3d_sample, 3), dtype=torch.float32, device=dev)
+    points[:, :n] = scene.meshes.vertices[:, :n]
+    weights = (np.arange(num_3d_sample)[None, :] < np.minimum(scene.num_vertices, n)[:, None])
+    weights = torch.from_numpy(weights.astype(np.float32)).to(dev)
+    points = points * weights[..., None]
+    return TrainBatch(
+        image_observed=scene.image,
+        mask_observed=box_fill(scene.mask),
+        mask_gt_observed=scene.mask,
+        depth_gt_observed=scene.depth[:, 0],
+        pose_rendered=torch.from_numpy(scene.pose0).to(dev),
+        pose_observed=torch.from_numpy(scene.pose_gt).to(dev),
+        class_index=torch.from_numpy(scene.cls_idx).to(dev),
+        points_model=points,
+        points_weights=weights,
+        k=torch.from_numpy(np.asarray(k_mat, np.float32)).to(dev),
+    )

@@ -42,6 +42,14 @@ def R_transform(r_src: torch.Tensor, r_delta: torch.Tensor, rot_coord: str = "CA
     return torch.einsum("...ij,...jk->...ik", r_delta, r_src)
 
 
+def R_inv_transform(r_src: torch.Tensor, r_tgt: torch.Tensor, rot_coord: str = "CAMERA") -> torch.Tensor:
+    """Rotation delta taking src to tgt: MODEL R_src^T R_tgt; CAMERA/NAIVE
+    R_tgt R_src^T."""
+    if _check_coord(rot_coord) == "model":
+        return torch.einsum("...ji,...jk->...ik", r_src, r_tgt)
+    return torch.einsum("...ij,...kj->...ik", r_tgt, r_src)
+
+
 def T_transform(t_src, t_delta, t_means=0.0, t_stds=1.0, rot_coord: str = "CAMERA"):
     """Apply the untangled translation delta: z_tgt = z_src / exp(vz);
     CAMERA/MODEL: x_tgt = z_tgt (vx + x_src / z_src); CAMERA_NEW:
@@ -61,6 +69,23 @@ def T_transform(t_src, t_delta, t_means=0.0, t_stds=1.0, rot_coord: str = "CAMER
     return torch.stack([x2, y2, z2], dim=-1)
 
 
+def T_inv_transform(t_src, t_tgt, t_means=0.0, t_stds=1.0, rot_coord: str = "CAMERA"):
+    """Untangled translation delta taking t_src to t_tgt (inverse of
+    T_transform), normalized by (t_means, t_stds)."""
+    rc = _check_coord(rot_coord)
+    if rc == "camera_new":
+        vx = (t_tgt[..., 0] - t_src[..., 0]) / t_src[..., 2]
+        vy = (t_tgt[..., 1] - t_src[..., 1]) / t_src[..., 2]
+    elif rc in ("camera", "model"):
+        vx = t_tgt[..., 0] / t_tgt[..., 2] - t_src[..., 0] / t_src[..., 2]
+        vy = t_tgt[..., 1] / t_tgt[..., 2] - t_src[..., 1] / t_src[..., 2]
+    else:
+        raise ValueError("T_inv_transform does not support rot_coord='naive'")
+    vz = torch.log(t_src[..., 2] / t_tgt[..., 2])
+    delta = torch.stack([vx, vy, vz], dim=-1)
+    return (delta - t_means) / t_stds
+
+
 def RT_transform(pose_src, rot, t_delta, t_means=0.0, t_stds=1.0, rot_coord: str = "CAMERA"):
     """Apply a (rotation, untangled translation) delta to poses.
 
@@ -78,3 +103,15 @@ def RT_transform(pose_src, rot, t_delta, t_means=0.0, t_stds=1.0, rot_coord: str
     r = R_transform(pose_src[..., :3, :3], r_delta, rot_coord)
     t = T_transform(pose_src[..., :3, 3], t_delta, t_means, t_stds, rot_coord)
     return make_pose(r, t)
+
+
+def calc_RT_delta(pose_src, pose_tgt, t_means=0.0, t_stds=1.0, rot_coord: str = "CAMERA"):
+    """Relative (R_delta (..., 3, 3), untangled T_delta (..., 3)) from src
+    to tgt poses; mat2quat converts R_delta for the QUAT head."""
+    rc = _check_coord(rot_coord)
+    if rc == "naive":
+        rel = se3_mul(pose_tgt, se3_inverse(pose_src))
+        return rel[..., :3, :3], rel[..., :3, 3]
+    r_delta = R_inv_transform(pose_src[..., :3, :3], pose_tgt[..., :3, :3], rot_coord)
+    t_delta = T_inv_transform(pose_src[..., :3, 3], pose_tgt[..., :3, 3], t_means, t_stds, rot_coord)
+    return r_delta, t_delta

@@ -27,8 +27,27 @@ import torch.nn.functional as F
 from deepim_tpu_torch.device import resolve_device
 
 
+class _Leaky(torch.autograd.Function):
+    """LeakyReLU(0.1) whose derivative at exactly 0 is 1, as JAX's
+    where(x >= 0, x, 0.1 x) gives (torch's leaky_relu gives 0.1 there).  It
+    matters at initialisation: with zero biases, the zero pixels outside a
+    zoomed crop give exactly-zero pre-activations over most of the early
+    feature maps, and the bias gradients of those layers then differ by up
+    to 2x between the two slopes."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.leaky_relu(x, negative_slope=0.1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, g * 0.1)
+
+
 def leaky(x):
-    return F.leaky_relu(x, negative_slope=0.1)
+    return _Leaky.apply(x)
 
 
 @lru_cache(maxsize=None)

@@ -1,8 +1,11 @@
+from deepim_tpu_torch.ops.flow import flow_from_depth, flow_from_depth_kt, gather_at_flow_target
 from deepim_tpu_torch.ops.masks import box_fill
+from deepim_tpu_torch.ops.pointmatch import transform3d
 from deepim_tpu_torch.ops.sampler import ZoomFactor, affine_sample, invert_zoom_factor
 from deepim_tpu_torch.ops.zoom import (
     mask_bbox,
     zoom_factor_from_masks,
+    zoom_flow,
     zoom_images,
     zoom_mask,
     zoom_masks,
@@ -10,6 +13,7 @@ from deepim_tpu_torch.ops.zoom import (
 )
 
 __all__ = [
-    "box_fill", "ZoomFactor", "affine_sample", "invert_zoom_factor", "mask_bbox",
-    "zoom_factor_from_masks", "zoom_images", "zoom_mask", "zoom_masks", "zoom_trans",
+    "flow_from_depth", "flow_from_depth_kt", "gather_at_flow_target", "box_fill", "transform3d",
+    "ZoomFactor", "affine_sample", "invert_zoom_factor", "mask_bbox", "zoom_factor_from_masks",
+    "zoom_flow", "zoom_images", "zoom_mask", "zoom_masks", "zoom_trans",
 ]

@@ -31,8 +31,8 @@ def invert_zoom_factor(zf: ZoomFactor, height: int, width: int) -> ZoomFactor:
     """Zoom factor mapping the crop back to the full frame."""
     crop_w = zf.wx * width
     crop_h = zf.wy * height
-    cx = zf.tx * 0.5 * width + 0.5 * width
-    cy = zf.ty * 0.5 * height + 0.5 * height
+    cx = _fma32(zf.tx * 0.5, width, 0.5 * width)
+    cy = _fma32(zf.ty * 0.5, height, 0.5 * height)
     return ZoomFactor(
         wx=1.0 / zf.wx,
         wy=1.0 / zf.wy,
@@ -55,6 +55,19 @@ def _grid(n: int, device) -> torch.Tensor:
     return torch.cat([out, torch.ones(1, device=device)])
 
 
+def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once, as XLA's CPU compiler emits the
+    reference's multiply-adds here (it contracts them into FMAs:
+    vfmadd213ss in the compiled coordinate fusion).  The float32 product is
+    exact in float64, so the float64 sum rounded to float32 is the FMA's
+    result (a double rounding could differ only on an exact float32 tie).
+    b and c: tensors or Python numbers."""
+    def f64(x):
+        return x.double() if isinstance(x, torch.Tensor) else float(x)
+
+    return (f64(a) * f64(b) + f64(c)).float()
+
+
 def _interp_weights(src: torch.Tensor, size_in: int) -> torch.Tensor:
     """(B, N_out) source pixel positions -> (B, N_out, size_in) bilinear
     weights (rows of out-of-range positions sum to < 1: zero padding)."""
@@ -74,8 +87,8 @@ def affine_sample(img: torch.Tensor, zf: ZoomFactor, out_hw: tuple[int, int] | N
     gy = _grid(ho, img.device)
     wx, wy = zf.wx.to(f32), zf.wy.to(f32)
     tx, ty = zf.tx.to(f32), zf.ty.to(f32)
-    sx = (wx[:, None] * gx[None, :] + tx[:, None] + 1.0) * ((w - 1) * 0.5)
-    sy = (wy[:, None] * gy[None, :] + ty[:, None] + 1.0) * ((h - 1) * 0.5)
+    sx = (_fma32(wx[:, None], gx[None, :], tx[:, None]) + 1.0) * ((w - 1) * 0.5)
+    sy = (_fma32(wy[:, None], gy[None, :], ty[:, None]) + 1.0) * ((h - 1) * 0.5)
     wmat_x = _interp_weights(sx, w)  # (B, Wo, W)
     wmat_y = _interp_weights(sy, h)  # (B, Ho, H)
     tmp = torch.einsum("bih,bchw->bciw", wmat_y, img.to(f32))

@@ -2,7 +2,8 @@
 deepim_tpu/ops/zoom.py).
 
 The crop is non-differentiable (the zoom factor is detached), except
-zoom_trans, which passes gradients through to the translation.
+zoom_trans, which passes gradients through to the translation.  zoom_flow
+zooms the training flow labels and their weights.
 """
 from __future__ import annotations
 
@@ -101,6 +102,23 @@ def zoom_masks(mask_observed, mask_gt_observed, mask_rendered, zf: ZoomFactor):
     rend_bin = torch.where(mask_rendered > MASK_THRESH, 1.0, 0.0).to(mask_rendered.dtype)
     rend = torch.round(affine_sample(rend_bin, zf))
     return obs.detach(), gt.detach(), rend.detach()
+
+
+def zoom_flow(flow, zf: ZoomFactor, flow_weights=None, *, inverse: bool = False):
+    """(Inverse) zoom of flow maps (B, 2, H, W), scaling the flow values by
+    1/wx (inverse: by wx).  The forward zoom also zooms the flow weights and
+    re-binarizes them with round(x - 0.45), returning (flow, weights).  No
+    gradient."""
+    h, w = flow.shape[-2], flow.shape[-1]
+    sample_zf = invert_zoom_factor(zf, h, w) if inverse else zf
+    scale = zf.wx if inverse else 1.0 / zf.wx
+    out = (affine_sample(flow, sample_zf) * scale[:, None, None, None]).detach()
+    if inverse:
+        return out
+    if flow_weights is None:
+        raise ValueError("forward zoom_flow requires flow_weights")
+    zw = torch.round(affine_sample(flow_weights, sample_zf) - 0.45).detach()
+    return out, zw
 
 
 def _zoom_trans_math(trans_delta, wx, inverse: bool):

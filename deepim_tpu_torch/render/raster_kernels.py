@@ -1,7 +1,7 @@
 """The rasterizer's per-tile z-buffer + shading kernels: CUDA wrappers,
 their plain PyTorch twins, launch counters and the nvcc build.
 
-Counterpart of deepim_tpu/render/pallas_raster.py.  Two kernels, both in
+Counterpart of deepim_tpu/render/pallas_raster.py.  Three kernels, all in
 csrc/raster.cu (the source explains their design and what bounds them):
 
 * csr_raster  replaces pallas_raster._csr_chunk_kernel ("slots8", launched
@@ -9,6 +9,11 @@ csrc/raster.cu (the source explains their design and what bounds them):
   tile's CSR segment of csr_pack-face units.  Output (W, 5, 128) rows
   [q, fid, r*q, g*q, b*q]; a pixel no face covers keeps q = -1e30 and
   fid = 1e30.
+* csr_planes_raster replaces pallas_raster._csr_planes_kernel ("planes64",
+  pallas_csr_group(kernel="planes64")): csr_raster's contract, but it
+  reads the raw corner pack (rasterizer.build_raw_pack) and derives each
+  face's planes while staging it, with build_face_records' operations in
+  the same order, so its output equals csr_raster's bit for bit.
 * tile_raster replaces pallas_raster._tile_kernel (dense path, launched by
   pallas_visibility_shade): one tile_h x tile_w tile per work item, looping
   over the tile's counts[w] face ids.  Output (W, 4, P) rows
@@ -41,6 +46,7 @@ from pathlib import Path
 import torch
 
 REC_WIDTH = 32
+RAW_WIDTH = 32  # raw corner-pack row (csr_planes_raster); 20 lanes used
 NEG = -1e30
 BIG = 1e30
 CSR_TILE_PIXELS = 128
@@ -105,6 +111,8 @@ def load_library():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.csr_raster_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp]
         lib.csr_raster_launch.restype = ci
+        lib.csr_planes_raster_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+        lib.csr_planes_raster_launch.restype = ci
         lib.tile_raster_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
         lib.tile_raster_launch.restype = ci
         BUILD_INFO.update(seconds=seconds, log=log, path=str(so))
@@ -114,6 +122,7 @@ def load_library():
 
 def reset_launch_counts() -> None:
     csr_raster.launches = 0
+    csr_planes_raster.launches = 0
     tile_raster.launches = 0
 
 
@@ -131,6 +140,48 @@ def _check_cuda_args(name, tensors, dtypes):
 def _launch_check(name, rc):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def build_face_records(fu, fv, fq, fcol, valid):
+    """(N, 32) table of anchored screen-space planes.
+
+    fu, fv, fq: (N, 3) screen corners and corner 1/z; fcol: (N, 3, 3) corner
+    colors; valid: (N,).  Every plane is evaluated as a*dx + b*dy + c with
+    dx = px - u0 (anchored at corner 0).  Lane layout:
+    [0] u0 [1] v0 [2:5] A0 B0 ar [5:7] A1 B1 [7:9] A2 B2 [9:12] Qa Qb q0
+    [12] qmin [13] qmax [14] fid [15] pad [16:25] r*q, g*q, b*q planes
+    [25:32] pad; ar = -1e30 marks a face that covers nothing."""
+    n = fu.shape[0]
+    u0, u1, u2 = fu[:, 0], fu[:, 1], fu[:, 2]
+    v0, v1, v2 = fv[:, 0], fv[:, 1], fv[:, 2]
+    area = (u1 - u0) * (v2 - v0) - (v1 - v0) * (u2 - u0)
+    ok = valid & (torch.abs(area) > 1e-12)
+    s = torch.where(ok, torch.sign(area), torch.zeros_like(area))
+    ar = torch.where(ok, torch.abs(area), torch.full_like(area, NEG))
+    inv = 1.0 / torch.where(ok, area, torch.ones_like(area))
+
+    def attr_plane(val):
+        d1 = val[:, 1] - val[:, 0]
+        d2 = val[:, 2] - val[:, 0]
+        a = (d1 * (v2 - v0) - d2 * (v1 - v0)) * inv
+        bb = (d2 * (u1 - u0) - d1 * (u2 - u0)) * inv
+        return [a, bb, val[:, 0]]
+
+    zero = torch.zeros_like(u0)
+    cols = [
+        u0, v0,
+        -(v2 - v1) * s, (u2 - u1) * s, ar,
+        -(v0 - v2) * s, (u0 - u2) * s,
+        -(v1 - v0) * s, (u1 - u0) * s,
+        *attr_plane(fq),
+        fq.amin(1), fq.amax(1),
+        torch.arange(n, dtype=fu.dtype, device=fu.device),
+        zero,
+    ]
+    for ch in range(3):
+        cols += attr_plane(fcol[:, :, ch] * fq)
+    cols += [zero] * (32 - len(cols))
+    return torch.stack(cols, dim=1)
 
 
 def _pixel_coords(tile_xy, p, tile_w):
@@ -223,6 +274,18 @@ def csr_raster_plain(records, sorted_unit, seg_start, seg_count, tile_xy, unit_b
     return out
 
 
+def csr_planes_raster_plain(raw, sorted_unit, seg_start, seg_count, tile_xy, unit_base,
+                            pack: int, tile_w: int):
+    """Plain PyTorch twin of csr_planes_raster: the raw pack's planes from
+    build_face_records (face ids from lane 18), then csr_raster_plain."""
+    n = raw.shape[0]
+    records = build_face_records(raw[:, 0:3], raw[:, 3:6], raw[:, 6:9], raw[:, 9:18].reshape(n, 3, 3),
+                                 raw[:, 19] > 0)
+    records[:, 14] = raw[:, 18]
+    return csr_raster_plain(records, sorted_unit, seg_start, seg_count, tile_xy, unit_base,
+                            pack, tile_w)
+
+
 def tile_raster_plain(records, tf_global, counts, tile_xy, tile_h: int, tile_w: int):
     """Plain PyTorch twin of tile_raster (same arguments, same output)."""
     w_items, k_cap = tf_global.shape
@@ -258,6 +321,41 @@ def tile_raster_plain(records, tf_global, counts, tile_xy, tile_h: int, tile_w: 
     return out
 
 
+def _csr_call(wrapper, plain, table, sorted_unit, seg_start, seg_count, tile_xy, unit_base,
+              pack: int, tile_w: int):
+    """Shared body of the CSR wrappers: the plain twin for CPU tensors;
+    for CUDA tensors, validate them, launch `wrapper`'s kernel and count
+    the launch."""
+    name = wrapper.__name__
+    if tile_w <= 0 or CSR_TILE_PIXELS % tile_w:
+        raise ValueError(f"{name}: tile_w {tile_w} must divide {CSR_TILE_PIXELS}")
+    args = (table, sorted_unit, seg_start, seg_count, tile_xy, unit_base)
+    dev = table.device
+    if dev.type == "cpu":
+        return plain(*args, pack, tile_w)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    _check_cuda_args(name, args, (torch.float32,) + (torch.int32,) * 5)
+    w_items = seg_count.shape[0]
+    if table.dim() != 2 or table.shape[-1] != REC_WIDTH or tile_xy.shape != (w_items, 2):
+        raise ValueError(f"{name}: bad face table or tile_xy shape")
+    if table.shape[0] * REC_WIDTH >= 2**31:
+        raise ValueError(f"{name}: face table exceeds 32-bit indexing")
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name}: face table must be 16-byte aligned")
+    out = torch.empty((w_items, 5, CSR_TILE_PIXELS), dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, f"{name}_launch")(
+            *(t.data_ptr() for t in args), out.data_ptr(),
+            w_items, int(pack), int(tile_w), stream,
+        )
+    _launch_check(name, rc)
+    wrapper.launches += 1
+    return out
+
+
 def csr_raster(records, sorted_unit, seg_start, seg_count, tile_xy, unit_base,
                pack: int, tile_w: int):
     """CSR z-buffer + shade over 16x8 fine tiles.
@@ -268,32 +366,18 @@ def csr_raster(records, sorted_unit, seg_start, seg_count, tile_xy, unit_base,
     i32 the work item's sample * units per sample (global face id =
     (unit_base + unit) * pack + j).  Returns (W, 5, 128) f32
     [q, fid, r*q, g*q, b*q]."""
-    if tile_w <= 0 or CSR_TILE_PIXELS % tile_w:
-        raise ValueError(f"csr_raster: tile_w {tile_w} must divide {CSR_TILE_PIXELS}")
-    dev = records.device
-    if dev.type == "cpu":
-        return csr_raster_plain(records, sorted_unit, seg_start, seg_count, tile_xy,
-                                unit_base, pack, tile_w)
-    if dev.type != "cuda":
-        raise ValueError(f"csr_raster: unsupported device {dev}")
-    args = (records, sorted_unit, seg_start, seg_count, tile_xy, unit_base)
-    _check_cuda_args("csr_raster", args, (torch.float32,) + (torch.int32,) * 5)
-    w_items = seg_count.shape[0]
-    if records.shape[-1] != REC_WIDTH or tile_xy.shape != (w_items, 2):
-        raise ValueError("csr_raster: bad record or tile_xy shape")
-    if records.shape[0] * REC_WIDTH >= 2**31:
-        raise ValueError("csr_raster: record table exceeds 32-bit indexing")
-    out = torch.empty((w_items, 5, CSR_TILE_PIXELS), dtype=torch.float32, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.csr_raster_launch(
-            *(t.data_ptr() for t in args), out.data_ptr(),
-            w_items, int(pack), int(tile_w), stream,
-        )
-    _launch_check("csr_raster", rc)
-    csr_raster.launches += 1
-    return out
+    return _csr_call(csr_raster, csr_raster_plain, records, sorted_unit, seg_start, seg_count,
+                     tile_xy, unit_base, pack, tile_w)
+
+
+def csr_planes_raster(raw, sorted_unit, seg_start, seg_count, tile_xy, unit_base,
+                      pack: int, tile_w: int):
+    """csr_raster from the raw corner pack: raw (N, 32) f32 rows of
+    rasterizer.build_raw_pack ([0:3] u, [3:6] v, [6:9] 1/z, [9:18] corner
+    colors, [18] face id, [19] validity); the other arguments and the
+    output are csr_raster's."""
+    return _csr_call(csr_planes_raster, csr_planes_raster_plain, raw, sorted_unit, seg_start,
+                     seg_count, tile_xy, unit_base, pack, tile_w)
 
 
 def tile_raster(records, tf_global, counts, tile_xy, tile_h: int, tile_w: int):
@@ -331,4 +415,5 @@ def tile_raster(records, tf_global, counts, tile_xy, tile_h: int, tile_w: int):
 
 
 csr_raster.launches = 0
+csr_planes_raster.launches = 0
 tile_raster.launches = 0

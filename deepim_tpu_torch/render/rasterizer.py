@@ -4,14 +4,17 @@ deepim_tpu/render/rasterizer.py).
 Pipeline, all batched:
   1. corner projection (explicit elementwise sums);
   2. the shared (B*F, 32) face-record table of anchored screen-space planes
-     (build_face_records; lane layout in raster_kernels / pallas_raster);
+     (build_face_records; lane layout in raster_kernels / pallas_raster),
+     or, for csr_kernel="planes64", the raw corner pack (build_raw_pack)
+     from which the kernel derives the same planes;
   3. tile binning: dense per-tile face lists (bin_faces) or exact CSR
      segments of (tile, pack-unit) pairs over 16x8 fine tiles
      (bin_faces_csr), with the per-unit tile budget and dropped-pair count;
   4. one count-sorted work list over all (sample, tile) pairs, keeping the
      `active_tiles` budget;
-  5. the z-buffer + shade kernel (raster_kernels.csr_raster or
-     raster_kernels.tile_raster: CUDA on the card, plain twins on CPU);
+  5. the z-buffer + shade kernel (raster_kernels.csr_raster,
+     csr_planes_raster or tile_raster: CUDA on the card, plain twins on
+     CPU);
   6. untiling into (B, H, W).
 
 Camera convention: pixel (i, j) is image-plane point u = fx x/z + cx = j,
@@ -34,9 +37,13 @@ from dataclasses import dataclass
 import torch
 
 from deepim_tpu_torch.device import resolve_device
-from deepim_tpu_torch.render.raster_kernels import csr_raster, tile_raster
-
-_NEG = -1e30
+from deepim_tpu_torch.render.raster_kernels import (
+    RAW_WIDTH,
+    build_face_records,
+    csr_planes_raster,
+    csr_raster,
+    tile_raster,
+)
 
 
 @dataclass(frozen=True)
@@ -45,10 +52,11 @@ class RasterConfig:
     each knob's measured rationale on the TPU).  Fields that only shape the
     TPU kernels' schedule are kept so configs copy across:
     `chunk`/`vis_mem_budget` (XLA visibility loop), `use_pallas`,
-    `csr_chunk` (only its divisibility by csr_pack matters: the CUDA kernel
-    stages 192 faces regardless), `worklist` (both orderings are the same
-    stable sort here) and `csr_group`.  csr_kernel="planes64" is not
-    ported and raises."""
+    `csr_chunk` (only its divisibility by csr_pack matters: the CUDA kernels
+    stage 192 faces regardless), `worklist` (both orderings are the same
+    stable sort here) and `csr_group`.  csr_kernel picks the CSR kernel:
+    "slots8" (csr_raster, prebuilt face records) or "planes64"
+    (csr_planes_raster, raw corner pack); any other value raises."""
 
     height: int = 480
     width: int = 640
@@ -236,46 +244,19 @@ def bin_faces_csr(fu, fv, valid, cfg: RasterConfig, th=None, tw=None):
     return sorted_unit, offsets, counts, dropped
 
 
-def build_face_records(fu, fv, fq, fcol, valid):
-    """(N, 32) table of anchored screen-space planes.
-
-    fu, fv, fq: (N, 3) screen corners and corner 1/z; fcol: (N, 3, 3) corner
-    colors; valid: (N,).  Every plane is evaluated as a*dx + b*dy + c with
-    dx = px - u0 (anchored at corner 0).  Lane layout:
-    [0] u0 [1] v0 [2:5] A0 B0 ar [5:7] A1 B1 [7:9] A2 B2 [9:12] Qa Qb q0
-    [12] qmin [13] qmax [14] fid [15] pad [16:25] r*q, g*q, b*q planes
-    [25:32] pad; ar = -1e30 marks a face that covers nothing."""
+def build_raw_pack(fu, fv, fq, fcol, valid):
+    """(N, 32) raw corner pack for csr_planes_raster (planes64), which
+    derives the planes inside the kernel with build_face_records' formulas.
+    A plain concatenation: [0:3] u, [3:6] v, [6:9] 1/z, [9:18] corner
+    colors (corner-major), [18] global face id (float32, exact below
+    2^24), [19] validity, [20:32] pad."""
     n = fu.shape[0]
-    u0, u1, u2 = fu[:, 0], fu[:, 1], fu[:, 2]
-    v0, v1, v2 = fv[:, 0], fv[:, 1], fv[:, 2]
-    area = (u1 - u0) * (v2 - v0) - (v1 - v0) * (u2 - u0)
-    ok = valid & (torch.abs(area) > 1e-12)
-    s = torch.where(ok, torch.sign(area), torch.zeros_like(area))
-    ar = torch.where(ok, torch.abs(area), torch.full_like(area, _NEG))
-    inv = 1.0 / torch.where(ok, area, torch.ones_like(area))
-
-    def attr_plane(val):
-        d1 = val[:, 1] - val[:, 0]
-        d2 = val[:, 2] - val[:, 0]
-        a = (d1 * (v2 - v0) - d2 * (v1 - v0)) * inv
-        bb = (d2 * (u1 - u0) - d1 * (u2 - u0)) * inv
-        return [a, bb, val[:, 0]]
-
-    zero = torch.zeros_like(u0)
-    cols = [
-        u0, v0,
-        -(v2 - v1) * s, (u2 - u1) * s, ar,
-        -(v0 - v2) * s, (u0 - u2) * s,
-        -(v1 - v0) * s, (u1 - u0) * s,
-        *attr_plane(fq),
-        fq.amin(1), fq.amax(1),
-        torch.arange(n, dtype=fu.dtype, device=fu.device),
-        zero,
-    ]
-    for ch in range(3):
-        cols += attr_plane(fcol[:, :, ch] * fq)
-    cols += [zero] * (32 - len(cols))
-    return torch.stack(cols, dim=1)
+    cols = torch.cat([
+        fu, fv, fq, fcol.reshape(n, 9),
+        torch.arange(n, dtype=fu.dtype, device=fu.device)[:, None],
+        valid.to(fu.dtype)[:, None],
+    ], dim=1)
+    return torch.nn.functional.pad(cols, (0, RAW_WIDTH - cols.shape[1]))
 
 
 def _face_validity(fu, fv, fz, face_valid, cfg: RasterConfig):
@@ -374,7 +355,8 @@ def kernel_inputs(vertices, colors, faces, face_valid, poses, k, cfg: RasterConf
     return [(p.kernel, p.args) for p in plans]
 
 
-KERNELS = {"csr_raster": csr_raster, "tile_raster": tile_raster}
+KERNELS = {"csr_raster": csr_raster, "csr_planes_raster": csr_planes_raster, "tile_raster": tile_raster}
+_CSR_KERNELS = {"slots8": "csr_raster", "planes64": "csr_planes_raster"}
 
 
 @dataclass
@@ -405,8 +387,9 @@ def _plan(faces, face_valid, poses, kb, corners, corner_colors, cfg) -> _Plan:
         )
     use_csr = uses_csr(cfg, nf)
     if use_csr:
-        if cfg.csr_kernel != "slots8":
-            raise NotImplementedError(f"csr_kernel={cfg.csr_kernel!r} is not ported (only 'slots8')")
+        if cfg.csr_kernel not in _CSR_KERNELS:
+            raise NotImplementedError(f"csr_kernel={cfg.csr_kernel!r} is not ported "
+                                      f"(only {sorted(_CSR_KERNELS)})")
         th, tw = cfg.csr_tile_h, cfg.csr_tile_w
         if th * tw != 128:
             raise ValueError("csr tile must be 128 pixels")
@@ -420,7 +403,8 @@ def _plan(faces, face_valid, poses, kb, corners, corner_colors, cfg) -> _Plan:
     fu, fv, fz = u.reshape(b, nf, 3), v.reshape(b, nf, 3), z.reshape(b, nf, 3)
     valid = _face_validity(fu, fv, fz, face_valid, cfg)
     fq = 1.0 / torch.where(torch.abs(fz) < 1e-12, torch.full_like(fz, 1e-12), fz)
-    records = build_face_records(
+    planes64 = use_csr and cfg.csr_kernel == "planes64"
+    records = (build_raw_pack if planes64 else build_face_records)(
         fu.reshape(b * nf, 3), fv.reshape(b * nf, 3), fq.reshape(b * nf, 3),
         corner_colors.reshape(b * nf, 3, 3), valid.reshape(b * nf),
     )
@@ -452,7 +436,7 @@ def _plan(faces, face_valid, poses, kb, corners, corner_colors, cfg) -> _Plan:
         n_pairs = sorted_unit.shape[1]
         seg_start = (sample_of * n_pairs + offsets.reshape(b * t)[flat_ids]).int().contiguous()
         unit_base = (sample_of * n_units).int().contiguous()
-        kernel = "csr_raster"
+        kernel = _CSR_KERNELS[cfg.csr_kernel]
         args = (records, sorted_unit.reshape(-1).contiguous(), seg_start, cnt_top, tile_xy,
                 unit_base, pack, tw)
     else:
@@ -465,7 +449,7 @@ def _plan(faces, face_valid, poses, kb, corners, corner_colors, cfg) -> _Plan:
 
 def _untile(plan: _Plan, out, cfg):
     """Kernel output -> rgb (b, H, W, 3), depth (b, H, W), dropped."""
-    if plan.kernel == "csr_raster":
+    if plan.kernel in ("csr_raster", "csr_planes_raster"):
         q_t, rgbq_t = out[:, 0], out[:, 2:5]
     else:
         q_t, rgbq_t = out[:, 0], out[:, 1:4]

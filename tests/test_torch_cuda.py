@@ -8,8 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from deepim_tpu_torch.engine.refine import Observation, refine
-from deepim_tpu_torch.engine.scene import build_scene
+import dataclasses
+
+from deepim_tpu_torch.config import TrainConfig, TrainIterConfig
+from deepim_tpu_torch.engine import TrainState, make_optimizer, make_train_step, warmup_multifactor_schedule
+from deepim_tpu_torch.engine.refine import MeshBuffers, Observation, refine
+from deepim_tpu_torch.engine.scene import build_scene, train_batch
 from deepim_tpu_torch.models import FlowNetDeepIM
 from deepim_tpu_torch.ops.masks import box_fill
 from deepim_tpu_torch.render import raster_kernels as rk
@@ -19,7 +23,8 @@ torch.set_num_threads(2)
 
 K96 = np.array([[150.0, 0, 64.0], [0, 150.0, 48.0], [0, 0, 1]], np.float32)
 K64 = np.array([[80.0, 0, 32.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
-TWINS = {"csr_raster": rk.csr_raster_plain, "tile_raster": rk.tile_raster_plain}
+TWINS = {"csr_raster": rk.csr_raster_plain, "csr_planes_raster": rk.csr_planes_raster_plain,
+         "tile_raster": rk.tile_raster_plain}
 
 
 def _need_card():
@@ -28,17 +33,21 @@ def _need_card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("binning", ["dense", "csr"])
-def test_kernel_equals_twin_on_card(binning):
+_KERNEL_OF = {("dense", "slots8"): "tile_raster", ("csr", "slots8"): "csr_raster",
+              ("csr", "planes64"): "csr_planes_raster"}
+
+
+@pytest.mark.parametrize("binning,csr_kernel", list(_KERNEL_OF))
+def test_kernel_equals_twin_on_card(binning, csr_kernel):
     """Kernel and plain twin on the same card inputs: bit-equal outputs."""
     dev = _need_card()
     sc = build_scene(3, 96, 128, K96, num_iters=1, mesh_detail=3, device=dev)
-    cfg = RasterConfig(**{**sc.ecfg.raster.__dict__, "binning": binning})
+    cfg = RasterConfig(**{**sc.ecfg.raster.__dict__, "binning": binning, "csr_kernel": csr_kernel})
     m = sc.meshes
     for name, args in kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid,
                                     torch.from_numpy(sc.pose0), torch.from_numpy(K96), cfg,
                                     device=dev):
-        assert name == ("csr_raster" if binning == "csr" else "tile_raster")
+        assert name == _KERNEL_OF[binning, csr_kernel]
         before = KERNELS[name].launches
         out = KERNELS[name](*args)
         assert KERNELS[name].launches == before + 1
@@ -89,3 +98,88 @@ def test_wrappers_validate_card_inputs():
         rk.tile_raster(rec, ids, cnt, xy, 64, 32)  # 2048-pixel tile
     with pytest.raises(ValueError):
         rk.csr_raster(rec, cnt, cnt, cnt, xy, cnt.cpu(), 4, 8)
+
+
+def test_planes_kernel_equals_slots8_kernel_on_card():
+    """csr_planes_raster (raw pack, planes derived in the kernel) and
+    csr_raster (prebuilt records) on the same render: equal outputs, and
+    equal images through rasterize."""
+    dev = _need_card()
+    sc = build_scene(2, 96, 128, K96, num_iters=1, mesh_detail=4, device=dev)
+    m = sc.meshes
+    args = (m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(sc.pose0), torch.from_numpy(K96))
+    outs, images = [], []
+    for kern in ("planes64", "slots8"):
+        cfg = dataclasses.replace(sc.ecfg.raster, csr_kernel=kern)
+        (name, kargs), = kernel_inputs(*args, cfg, device=dev)
+        outs.append(KERNELS[name](*kargs))
+        images.append(rasterize(*args, cfg, device=dev))
+    torch.cuda.synchronize()
+    assert (outs[0][:, 0] > 0).any()
+    assert torch.equal(outs[0], outs[1])
+    for a, b in zip(*images):
+        assert torch.equal(a, b)
+
+
+def test_train_step_card_equals_cpu():
+    """One 2-inner-iteration train step of the 64x64 scene on the card and
+    on the CPU, same weights: losses rtol 1e-4 and parameters within 1e-6
+    plus 1% of each tensor's update (cuDNN's fp32 convolutions sum in
+    another order than the CPU's; TF32 off)."""
+    dev = _need_card()
+    sc = build_scene(2, 64, 64, K64, num_iters=2, update_mask="box_gt", device="cpu")
+    batch = train_batch(sc, K64, 16)
+    ticfg = TrainIterConfig(SE3_PM_LOSS=True, LW_PM=0.1, NUM_3D_SAMPLE=16, LW_FLOW=0.25, LW_MASK=0.03)
+    model0 = FlowNetDeepIM(input_hw=(64, 64), generator=torch.Generator().manual_seed(0), device="cpu")
+    results = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for d in ("cpu", dev):
+            model = FlowNetDeepIM(input_hw=(64, 64), device=d)
+            model.load_state_dict(model0.state_dict())
+            opt = make_optimizer(model.parameters(), TrainConfig(), warmup_multifactor_schedule(1e-3, (1000,)))
+            state, metrics, pose = make_train_step(sc.ecfg, ticfg, "viz", device=d)(
+                TrainState(model, opt), batch, sc.bank_arrays)
+            results.append(({k: v.cpu() for k, v in metrics.items()},
+                             {k: v.cpu() for k, v in model.state_dict().items()}, pose.cpu()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (m_c, p_c, pose_c), (m_g, p_g, pose_g) = results
+    for key in ("pm_loss", "flow_loss", "mask_loss", "total"):
+        torch.testing.assert_close(m_g[key], m_c[key], rtol=1e-4, atol=0)
+    p0 = model0.state_dict()
+    for key in p_c:
+        delta = float((p_c[key] - p0[key]).abs().max())
+        torch.testing.assert_close(p_g[key], p_c[key], rtol=0, atol=1e-6 + 1e-2 * delta)
+    torch.testing.assert_close(pose_g, pose_c, rtol=0, atol=1e-5)
+
+
+def test_mesh_gather_on_card_tensors():
+    """MeshBuffers.gather takes a bank and class indices already on the card."""
+    dev = _need_card()
+    sc = build_scene(2, 64, 64, K64, num_iters=1, device="cpu")
+    bank = {k: torch.as_tensor(v).to(dev) for k, v in sc.bank_arrays.items()}
+    got = MeshBuffers.gather(bank, torch.as_tensor(sc.cls_idx).to(dev), device=dev)
+    ref = MeshBuffers.gather(sc.bank_arrays, sc.cls_idx, device="cpu")
+    for a, b in zip(got, ref):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+def test_planes_wrapper_validates_card_inputs():
+    """csr_planes_raster refuses what its kernel does not take."""
+    dev = _need_card()
+    raw = torch.zeros((8, 32), device=dev)
+    i32 = torch.zeros(2, dtype=torch.int32, device=dev)
+    xy = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    csr = (torch.zeros(4, dtype=torch.int32, device=dev), i32, i32, xy, i32)
+    with pytest.raises(TypeError):
+        rk.csr_planes_raster(raw.double(), *csr, 4, 8)
+    with pytest.raises(ValueError):
+        rk.csr_planes_raster(raw[:, :20].contiguous(), *csr, 4, 8)  # not 32 lanes
+    with pytest.raises(ValueError):
+        rk.csr_planes_raster(raw.reshape(-1)[1:1 + 7 * 32].view(7, 32), *csr, 4, 8)  # misaligned
+    with pytest.raises(ValueError):
+        rk.csr_planes_raster(raw, *csr[:4], i32.cpu(), 4, 8)
+    with pytest.raises(ValueError):
+        rk.csr_planes_raster(raw, *csr, 4, 3)  # tile_w must divide 128

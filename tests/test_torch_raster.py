@@ -3,7 +3,8 @@ package's, on the CPU, at test_csr_raster.py's 96x128 BASE.
 
 The JAX side runs its Pallas kernels in interpret mode (use_pallas=True),
 so the port's dense path is held to the dense tile kernel and its CSR path
-to the slots8 kernel; on the CPU the port runs the kernels' plain twins.
+to the slots8 kernel, or to the planes64 kernel with csr_kernel="planes64";
+on the CPU the port runs the kernels' plain twins.
 Tolerances are the JAX package's own cross-path ones
 (test_csr_raster.py:58-70): hit masks exact, depth atol 1e-5, rgb atol
 5e-3, dropped-pair counts equal."""
@@ -258,6 +259,73 @@ def test_mesh_builders_match_jax():
     jb = JMeshBank.from_meshes([j_cube(0.08), j_ico(0.05, 2)], 128)
     for name in ("vertices", "colors", "faces", "face_valid", "num_vertices", "num_faces"):
         np.testing.assert_array_equal(getattr(tb, name), getattr(jb, name))
+
+
+@pytest.mark.parametrize("mesh_name", ["cube", "ico3"])
+def test_planes64_matches_jax_planes64(mesh_name):
+    """csr_kernel="planes64" (the csr_planes_raster twin) against JAX's
+    interpreted planes64 kernel on test_csr_raster.py's scenes (full pair
+    budget, as test_planes64_matches_xla): hits exact, depth 1e-5, rgb
+    5e-3; and bit-equal to the port's slots8 render."""
+    arrs = _scene(_MESHES[mesh_name]())
+    kw = dict(binning="csr", bin_pairs=N_FINE * arrs[2].shape[1], csr_kernel="planes64")
+    j, t = _render_both(arrs, *_cfgs(**kw))
+    _assert_images(t, j)
+    slots8 = _torch_render(arrs, _cfgs(**{**kw, "csr_kernel": "slots8"})[1])
+    for a, b in zip(t, slots8):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_planes64_group_and_chunk_splits():
+    """JAX's planes64 under forced multi-chunk tiles and a multi-group scan
+    (csr_chunk=32, csr_group=7; test_planes64_group_and_chunk_splits)
+    against the port with the same knobs, which only change the TPU
+    schedule: the port's image is the unsplit one, bit for bit."""
+    arrs, _, _ = _reference("ico3", "csr")
+    kw = dict(binning="csr", csr_kernel="planes64")
+    j_split = _jax_render(arrs, _cfgs(**kw, csr_chunk=32, csr_group=7)[0])
+    t_split = _torch_render(arrs, _cfgs(**kw, csr_chunk=32, csr_group=7)[1])
+    _assert_images(t_split, j_split)
+    t_one = _torch_render(arrs, _cfgs(**kw)[1])
+    for a, b in zip(t_split, t_one):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_raw_pack_and_planes_twin(rng):
+    """build_raw_pack equals JAX's; the planes twin on a raw pack equals the
+    slots8 twin on build_face_records of the same corners, bit for bit,
+    including faces that are invalid or degenerate."""
+    n = 40
+    fu = rng.uniform(0, 128, (n, 3)).astype(np.float32)
+    fv = rng.uniform(0, 96, (n, 3)).astype(np.float32)
+    fv[:4] = fv[:4, :1]  # zero-area faces
+    fq = rng.uniform(1.5, 2.5, (n, 3)).astype(np.float32)
+    fcol = rng.uniform(0, 255, (n, 3, 3)).astype(np.float32)
+    valid = rng.rand(n) > 0.2
+    args = [torch.from_numpy(x) for x in (fu, fv, fq, fcol, valid)]
+    raw = tr.build_raw_pack(*args)
+    np.testing.assert_array_equal(raw.numpy(), np.asarray(jr.build_raw_pack(*map(jnp.asarray, (fu, fv, fq, fcol, valid)))))
+    records = tr.build_face_records(*args)
+    w_items, pack = 12, 4
+    sorted_unit = torch.from_numpy(rng.randint(0, n // pack, 60).astype(np.int32))
+    seg_count = torch.from_numpy(rng.randint(0, 6, w_items).astype(np.int32))
+    seg_start = torch.from_numpy(rng.randint(0, 54, w_items).astype(np.int32))
+    tile_xy = torch.from_numpy(np.stack([rng.randint(0, 16, w_items) * 8, rng.randint(0, 6, w_items) * 16],
+                                        1).astype(np.int32))
+    unit_base = torch.zeros(w_items, dtype=torch.int32)
+    csr = (sorted_unit, seg_start, seg_count, tile_xy, unit_base, pack, 8)
+    tk.reset_launch_counts()
+    out = tk.csr_planes_raster(raw, *csr)
+    assert torch.equal(out, tk.csr_raster_plain(records, *csr))
+    assert (out[:, 0] > 0).any() and tk.csr_planes_raster.launches == 0
+    with pytest.raises(ValueError):
+        tk.csr_planes_raster(raw.to("meta"), *(x.to("meta") for x in csr[:5]), pack, 8)
+
+
+def test_unknown_csr_kernel_raises():
+    arrs, kw, _ = _reference("ico3", "csr")
+    with pytest.raises(NotImplementedError):
+        _torch_render(arrs, _cfgs(**kw, csr_kernel="slots16")[1])
 
 
 def test_wrappers_dispatch_on_device():
