@@ -11,8 +11,14 @@ Phases (each raises on failure; the script then exits non-zero):
      kernel inputs of one render of its path's scene (480x640; 20,480-face
      icospheres, batch 16 for csr_raster and batch 4 for csr_planes_raster,
      the 320-face scene for tile_raster): hit masks and face ids exact, q to
-     1e-6, rgb to 5e-3; kernel and twin times (CUDA events, median); and
-     csr_planes_raster equal to csr_raster on the same render;
+     1e-6, rgb to 5e-3; the kernel's device time per launch (20 launches
+     replayed as one CUDA graph, so the wrapper's host share stays out),
+     the time of a single call between CUDA events (host share included,
+     which is larger for kernels this short) and the twin's;
+     csr_planes_raster equal to csr_raster on the same render; and both CSR
+     kernels bit-equal to the twin on a hand-built stress work list
+     (render/stress.py: a 1,328-face tile, exact 1/z ties, degenerate and
+     invalid faces, empty items; pack 1 and 4, tile_w 8, 16, 128 and 2);
   3. the main path on the CSR kernel: refine(), 4 iterations, batch 16,
      20,480-face meshes, FAST_TEST network (encoder + SE(3) head), seeded
      random weights with a small nonzero translation head, one warm-up and
@@ -65,6 +71,8 @@ from deepim_tpu_torch.models.flownet import FlowNetDeepIM  # noqa: E402
 from deepim_tpu_torch.ops.masks import box_fill  # noqa: E402
 from deepim_tpu_torch.render import raster_kernels as rk  # noqa: E402
 from deepim_tpu_torch.render.rasterizer import KERNELS, kernel_inputs, rasterize  # noqa: E402
+from deepim_tpu_torch.render.stress import stress_work_list  # noqa: E402
+from deepim_tpu_torch.tools.timing import graph_launch_ms  # noqa: E402
 
 H, W = 480, 640
 N_CALLS = 5
@@ -103,6 +111,9 @@ RECIPE_TCFG = TrainConfig(optimizer="sgd", warmup=True, warmup_lr=1e-5, warmup_s
                           lr_step="4,6", momentum=0.975, wd=5e-4, grad_clip=1.0, BATCH_PAIRS=TRAIN_B,
                           FLOW_WEIGHT_TYPE="viz", UPDATE_MASK="box_gt")
 PIXEL_MEANS = (123.68, 116.779, 103.939)
+# (pack, tile_w) of the stress work lists: 4x4 cull blocks at tile_w 8 and
+# 16, the kernels' general block shapes at 128 (16x1) and 2 (2x8).
+STRESS_CASES = ((1, 8), (4, 8), (1, 16), (4, 16), (4, 128), (1, 2))
 
 
 def log(msg: str) -> None:
@@ -180,14 +191,39 @@ def check_kernel(name: str, args, card: str) -> dict:
     raw_err = float((out - ref)[hit[:, None].expand_as(out)].abs().max()) if hit.any() else 0.0
     if q_err > 1e-6 or rgb_err > 5e-3:
         raise AssertionError(f"{name}: q err {q_err}, rgb err {rgb_err}")
-    ms = cuda_ms(lambda: KERNELS[name](*args), reps=20)
+    ms = graph_launch_ms(lambda: KERNELS[name](*args))
+    call_ms = cuda_ms(lambda: KERNELS[name](*args), reps=20)
     plain_ms = cuda_ms(lambda: PLAIN[name](*args), reps=10, warmup=1)
     b_ms, b_by, info = bound(name, args)
+    if csr:  # what the launch's time hangs on: how many blocks have faces, and their lists
+        faces = args[3][args[3] > 0].float() * args[6]
+        info.update(nonempty_items=faces.numel(), mean_faces=round(float(faces.mean()), 1),
+                    max_faces=int(faces.max()))
     log(f"[{name}] vs plain twin: {int(hit.sum())} hit px, max |dq| {q_err:.3g}, max |drgb| {rgb_err:.3g}, "
-        f"max raw err {raw_err:.3g}; kernel {ms:.4f} ms, twin {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+        f"max raw err {raw_err:.3g}; kernel {ms:.4f} ms per launch on the device ({call_ms:.4f} ms per single call "
+        f"with its host share), twin {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
         f"({b_by}; {info}) [{card}]")
-    return {"max_abs_err": raw_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "out": out}
+    return {"max_abs_err": raw_err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "out": out}
+
+
+def stress_check(card: str) -> None:
+    """Both CSR kernels against the twin on the stress work list: hits,
+    face ids and every value exact (max abs error 0)."""
+    for pack, tile_w in STRESS_CASES:
+        records, raw, csr = stress_work_list(pack, tile_w, device="cuda")
+        ref = rk.csr_raster_plain(records, *csr)
+        for name, table in (("csr_raster", records), ("csr_planes_raster", raw)):
+            out = KERNELS[name](table, *csr)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                bad = out != ref
+                raise AssertionError(
+                    f"{name} on the stress list (pack {pack}, tile_w {tile_w}): {int(bad.sum())} values "
+                    f"differ in items {sorted(set(bad.nonzero()[:, 0].tolist()))}, "
+                    f"{int((out[:, 1] != ref[:, 1]).sum())} face ids")
+    log(f"[stress list] csr_raster and csr_planes_raster equal the twin bit for bit "
+        f"((pack, tile_w) in {STRESS_CASES}; {int(csr[2].max()) * pack} faces in the longest item) [{card}]")
 
 
 def launch_counts() -> dict:
@@ -512,6 +548,7 @@ def main() -> int:
     if got != "csr_raster" or not torch.equal(slots8, results["csr_planes_raster"]["out"]):
         raise AssertionError("csr_planes_raster and csr_raster differ on the training render")
     log(f"[csr_planes_raster] equals csr_raster on the training render (hits, face ids, q, rgb) [{card}]")
+    stress_check(card)
 
     # 3./4. The eval main path on each raster kernel; 5. the training path.
     csr_model, dense_model = make_model(False, 0, dev), make_model(True, 1, dev)
@@ -539,7 +576,7 @@ def main() -> int:
         {
             "name": name, "route": "cuda", "source": "deepim_tpu_torch/csrc/raster.cu",
             "replaces": REPLACES[name], "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
         }
         for name, r in results.items()

@@ -4,28 +4,27 @@
 // deepim_tpu/render/pallas_raster.py (what they compute, not how the TPU
 // computes it):
 //
-//   csr_raster_kernel   replaces _csr_chunk_kernel ("slots8").  One block per
-//                       work item (one 16x8 fine tile of one sample), 128
-//                       threads, one per pixel.  The block walks its tile's
-//                       CSR segment of pack-face units in ascending unit id;
-//                       a unit's `pack` faces are consecutive global face
-//                       ids, so the faces arrive in ascending face id and a
-//                       strict `qi > best` test gives the TPU kernel's
-//                       (max 1/z, then min face id) winner without its
-//                       8-slot sublane merge.
+//   csr_raster_kernel   replaces _csr_chunk_kernel ("slots8").  A work item is
+//                       one 16x8 fine tile of one sample with its CSR
+//                       segment of pack-face units in ascending unit id; a
+//                       unit's `pack` faces are consecutive global face ids
+//                       (rows of the record table), so a list's rows
+//                       ascend.  Per pixel the largest clamped 1/z wins,
+//                       ties go to the smallest row: the TPU kernel's (max
+//                       1/z, then min face id) winner without its 8-slot
+//                       sublane merge.
 //   csr_planes_raster_kernel
 //                       replaces _csr_planes_kernel ("planes64").  The same
-//                       block shape and face walk as csr_raster_kernel, but
-//                       it reads the raw corner pack (rasterizer.
-//                       build_raw_pack rows) and derives each face's planes
-//                       while staging it: one thread per staged face, the
-//                       25 record values of build_face_records computed
-//                       with the same operations in the same order, each
-//                       rounded on its own, and a correctly rounded
-//                       reciprocal (__frcp_rn; torch's 1.0 / t is an IEEE
-//                       division).  Its planes are therefore bit-identical
-//                       to the record table, and its output to
-//                       csr_raster_kernel's on the same scene.
+//                       kernel body, but it reads the raw corner pack
+//                       (rasterizer.build_raw_pack rows) and derives each
+//                       face's planes in registers: the record values of
+//                       build_face_records computed with the same
+//                       operations in the same order, each rounded on its
+//                       own, and a correctly rounded reciprocal (__frcp_rn;
+//                       torch's 1.0 / t is an IEEE division).  Its planes
+//                       are therefore bit-identical to the record table,
+//                       and its output to csr_raster_kernel's on the same
+//                       scene.
 //   tile_raster_kernel  replaces _tile_kernel (dense path).  One block per
 //                       work item (one tile_h x tile_w tile), one thread per
 //                       pixel, looping over the tile's counts[w] face ids
@@ -35,25 +34,59 @@
 // Face records are the 32-float rows built by rasterizer.build_face_records
 // (lane layout in pallas_raster.py:19-40): anchor u0 v0, edge planes
 // (A0 B0 ar) (A1 B1) (A2 B2), 1/z plane (Qa Qb q0), clamp [qmin, qmax],
-// fid, pad, r*q / g*q / b*q planes.  Blocks stage records in shared memory a
-// chunk at a time; every thread then reads the same record word (a shared
-// memory broadcast, no bank conflicts).
+// fid, pad, r*q / g*q / b*q planes.  Records are finite numbers.
 //
-// What bounds them on an H100: the work is one evaluation of ~22 fp32
-// operations per (face, pixel) pair of the binned lists, reading 128 bytes
-// of record per face from device memory once per tile that face is binned
-// to.  At the main path's shapes both the byte and the operation bound are
-// tens of microseconds, so what limits these simple kernels in practice is
-// latency: the per-face loop is serial inside a block, and a 16x8 tile only
-// has 4 warps.  The design keeps every block's face loop to the faces its
-// own tile needs (exact CSR segments / per-tile counts) and stages records
-// so each word is read from device memory once per block.  Faster designs
-// (several tiles per block, split face lists) are later work.
-// csr_planes_raster_kernel reads 80 bytes of raw row (20 lanes, five
-// 16-byte loads) instead of a 128-byte record per face-tile pair and adds
-// ~75 fp32 operations of plane derivation per pair, against 128 x 22 for
-// the pair's evaluation: the same bound, and the same latency limit.
-// Speed is later work for it too.
+// What bounds the two CSR kernels on an H100.  The work is one evaluation
+// of ~22 fp32 operations per (face, pixel) pair of the binned lists, and
+// 128 (80 for the raw pack) bytes of record per face from device memory,
+// once per tile the face is binned to.  At the main path's shapes (2,048
+// work items, a third of them non-empty, ~190 faces each, 464 at most)
+// both the byte and the operation bound are a few microseconds.  What the
+// kernels cost in practice is issue slots and latency: a face of a fine
+// mesh covers half a pixel of a tile on average, so a block that gives
+// every pixel a thread and walks the faces spends nearly all its issue
+// slots proving that faces miss pixels, one block's serial loop over its
+// longest list sets the launch's time, and ~1,400 empty work items queue
+// for a block each.  The design turns the loop round:
+//
+//   1. One thread per face.  A block of 256 threads takes a work item;
+//      thread t reads the planes of faces t, t + 256, ... of the tile's list
+//      into registers with 16-byte loads (the record's first 28 lanes, or the
+//      raw row, from which it derives them), so no record is read by more
+//      than one thread and nothing waits on a block-wide staging step.
+//   2. Cull before touching pixels, exactly.  The thread evaluates each of
+//      the face's edge planes once for each of the tile's 8 blocks of 16
+//      pixels, at the corner pixel of that rectangle where the plane is
+//      largest (the signs of its two coefficients pick the
+//      corner), with the operations the per-pixel test uses.  Each operation
+//      is rounded on its own and rounding is monotone, so the plane at any
+//      pixel of the rectangle is <= its value at that corner: one negative
+//      maximum proves that no pixel of the rectangle passes the inside test.
+//      A face keeps 1.5 to 2 of its 8 blocks on average.
+//   3. Spread what is left over the warp.  Faces keep unequal numbers of
+//      blocks, and a warp is as slow as its worst lane.  So each lane leaves
+//      its face's planes in shared memory and enters its (face, block) pairs
+//      into the warp's queue at a prefix sum of the counts; lane i then
+//      takes pair i, i + 32, ...  A pair's 16 pixels are tested without a
+//      branch (a 4x4 block unrolled, the products with dx shared by a
+//      column and those with dy by a row), and only covered pixels go on.
+//   4. A z-buffer of 64-bit keys in shared memory.  A covered pixel gets
+//      atomicMax(order-preserving bits of the clamped 1/z << 32 | ~face
+//      row): the largest 1/z wins and, among equals, the smallest face row,
+//      which is the twin's first-in-list rule since a list's rows ascend.
+//      The order of the atomics does not matter, so the result is
+//      deterministic.  (-0 orders below +0 here, unlike a float compare; 1/z
+//      of a valid face is positive.)  When the list is done, thread p reads
+//      pixel p's winner, loads that one face again and shades it.
+//   5. A grid of resident blocks.  The launch has as many blocks as the card
+//      holds at once; block b walks items b, 2G-1-b, 2G+b, ... of the work
+//      list, which is sorted longest first, with the next item's face count
+//      already loaded, so an empty item costs a few stores instead of a
+//      block.
+//
+// tile_raster_kernel keeps its simple design (records staged in shared
+// memory, every pixel's thread evaluating every listed face); only its
+// shared-memory reads became 16-byte loads.
 //
 // Arithmetic order: every plane is evaluated as ((a*dx) + (b*dy)) + c with
 // dx = px - u0, each operation rounded on its own with the __fmul_rn /
@@ -61,86 +94,218 @@
 // That is the order of pallas_raster.py:88-99 and :180-194 and of the plain
 // PyTorch twins in render/raster_kernels.py, so kernel and twin agree bit
 // for bit.  (The alternative, -fmad=false, would change the whole file.)
+//
+// RASTER_ABLATE (a compile-time value, 0 in every build the package
+// makes): 1 switches the cull off (every face at all 128 pixels, the same
+// output), so that tools/raster_ablation.py can time what it buys.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef RASTER_ABLATE
+#define RASTER_ABLATE 0
+#endif
+
 namespace {
 
+constexpr int kAblate = RASTER_ABLATE;
 constexpr int kRec = 32;            // floats per face record
+constexpr int kPlanes = 28;         // record lanes a kernel reads (0..24), in 16-byte units
 constexpr float kNeg = -1e30f;      // empty z-buffer / invalid edge constant
 constexpr float kBig = 1e30f;       // "no face" id
 constexpr int kCsrPixels = 128;     // 16x8 fine tile
-constexpr int kCsrStage = 192;      // faces staged per chunk (24 KB)
-constexpr int kTileStage = 128;     // faces staged per chunk (16 KB)
+constexpr int kCsrThreads = 256;    // CSR block: one face per thread and pass
+constexpr int kCullBlocks = 8;      // 16-pixel cull blocks of a CSR tile
+constexpr int kStash = 20;          // floats a face keeps in its warp's stash (5 x 16 bytes: no bank conflicts)
+constexpr int kTileStage = 128;     // tile_raster: faces staged per chunk (16 KB)
 
-__device__ __forceinline__ float plane3(const float* rc, int j, float dx, float dy) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(rc[j], dx), __fmul_rn(rc[j + 1], dy)), rc[j + 2]);
+// (a*dx) + (b*dy), each operation rounded on its own.
+__device__ __forceinline__ float plane2(float a, float b, float dx, float dy) {
+  return __fadd_rn(__fmul_rn(a, dx), __fmul_rn(b, dy));
 }
 
-__device__ __forceinline__ float plane2(const float* rc, int j, float dx, float dy) {
-  return __fadd_rn(__fmul_rn(rc[j], dx), __fmul_rn(rc[j + 1], dy));
+__device__ __forceinline__ float plane3(float a, float b, float c, float dx, float dy) {
+  return __fadd_rn(plane2(a, b, dx, dy), c);
 }
 
 struct Frag {
   float q, fid, r, g, b;
 };
 
-// Evaluate one face record at (px, py) and keep it when it covers the pixel
-// and is strictly nearer (larger interpolated 1/z) than the current winner.
-__device__ __forceinline__ void shade_face(const float* rc, float px, float py, Frag& best) {
-  const float dx = __fsub_rn(px, rc[0]);
-  const float dy = __fsub_rn(py, rc[1]);
-  const float e0 = plane3(rc, 2, dx, dy);
-  const float e1 = plane2(rc, 5, dx, dy);
-  const float e2 = plane2(rc, 7, dx, dy);
-  const bool inside = fminf(e0, fminf(e1, e2)) >= 0.0f;
-  const float qi = fminf(fmaxf(plane3(rc, 9, dx, dy), rc[12]), rc[13]);
-  if (inside && qi > best.q) {
-    best.q = qi;
-    best.fid = rc[14];
-    best.r = plane3(rc, 16, dx, dy);
-    best.g = plane3(rc, 19, dx, dy);
-    best.b = plane3(rc, 22, dx, dy);
+// ---- The CSR kernels: one thread per face, scattering into a z-buffer ----
+
+// Pixels x_lo..x_hi by y_lo..y_hi, bounds included.
+struct Rect {
+  float x_lo, x_hi, y_lo, y_hi;
+};
+
+// plane2 at the pixel of the rectangle where it is largest: every
+// operation is rounded on its own and rounding is monotone, so no pixel of
+// the rectangle gives more.
+__device__ __forceinline__ float plane2_max(float a, float b, float u0, float v0, const Rect& r) {
+  const float dx = __fsub_rn(a >= 0.0f ? r.x_hi : r.x_lo, u0);
+  const float dy = __fsub_rn(b >= 0.0f ? r.y_hi : r.y_lo, v0);
+  return plane2(a, b, dx, dy);
+}
+
+// False only when the face (planes rc, record lane layout) covers no pixel
+// of the rectangle: one of its edge planes is negative even where it is
+// largest.
+__device__ __forceinline__ bool may_cover(const float* rc, const Rect& r) {
+  if constexpr (kAblate == 1) return true;
+  const float e0 = __fadd_rn(plane2_max(rc[2], rc[3], rc[0], rc[1], r), rc[4]);
+  const float e1 = plane2_max(rc[5], rc[6], rc[0], rc[1], r);
+  const float e2 = plane2_max(rc[7], rc[8], rc[0], rc[1], r);
+  return !(e0 < 0.0f) && !(e1 < 0.0f) && !(e2 < 0.0f);
+}
+
+// A tile of tile_w x (128 / tile_w) pixels as 8 cull blocks of bw x bh = 16
+// pixels (4 x 4 where the tile is at least 4 pixels each way), block k at
+// column k % (tile_w / bw), row k / (tile_w / bw) of the block grid.
+struct CullGrid {
+  int bw, bh, col_mask, row_shift;
+};
+
+__device__ __forceinline__ CullGrid cull_grid(int tile_w) {
+  int bh = min(4, kCsrPixels / tile_w), bw = 16 / bh;
+  if (bw > tile_w) {
+    bw = tile_w;
+    bh = 16 / bw;
+  }
+  const int per_row = tile_w / bw;
+  return {bw, bh, per_row - 1, __ffs(per_row) - 1};
+}
+
+// A z-buffer entry: the clamped 1/z as order-preserving bits above the
+// complement of the global face row, so that an unsigned max keeps the
+// largest 1/z and, among equals, the smallest face row.  0 is "no face".
+__device__ __forceinline__ unsigned long long zkey(float q, unsigned gf) {
+  unsigned b = __float_as_uint(q);
+  b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)b << 32) | (unsigned)~gf;
+}
+
+__device__ __forceinline__ float zkey_q(unsigned long long key) {
+  const unsigned b = (unsigned)(key >> 32);
+  return __uint_as_float((b & 0x80000000u) ? (b & 0x7fffffffu) : ~b);
+}
+
+// One face at the pixels of one cull block (origin (x0 + cx, y0 + cy), bw x
+// bh = 16 pixels; a compile-time kBw x kBh unrolls the loops).  The inside
+// test runs over all 16 pixels without a branch, exactly as the per-pixel
+// loop of the twin computes it: ((a*dx) + (b*dy)) + c, where a column of
+// pixels shares the products with dx and a row those with dy.  The few
+// covered pixels then get their clamped 1/z and enter the z-buffer.
+template <int kBw, int kBh>
+__device__ __forceinline__ void scatter_block(const float* rc, unsigned gf, int x0, int cx, int y0,
+                                              int cy, int bw, int bh, int tile_w,
+                                              unsigned long long* zbuf) {
+  constexpr int kCols = kBw ? kBw : 1;
+  float a0[kCols], a1[kCols], a2[kCols];
+  if constexpr (kBw != 0) {
+    bw = kBw;
+    bh = kBh;
+#pragma unroll
+    for (int c = 0; c < kBw; ++c) {
+      const float dx = __fsub_rn((float)(x0 + cx + c), rc[0]);
+      a0[c] = __fmul_rn(rc[2], dx);
+      a1[c] = __fmul_rn(rc[5], dx);
+      a2[c] = __fmul_rn(rc[7], dx);
+    }
+  }
+  unsigned covered = 0;  // bit r * bw + c
+#pragma unroll
+  for (int r = 0; r < bh; ++r) {
+    const float dy = __fsub_rn((float)(y0 + cy + r), rc[1]);
+    const float t0 = __fmul_rn(rc[3], dy), t1 = __fmul_rn(rc[6], dy), t2 = __fmul_rn(rc[8], dy);
+#pragma unroll
+    for (int c = 0; c < bw; ++c) {
+      const int i = kBw ? c : 0;
+      if constexpr (kBw == 0) {
+        const float dx = __fsub_rn((float)(x0 + cx + c), rc[0]);
+        a0[0] = __fmul_rn(rc[2], dx);
+        a1[0] = __fmul_rn(rc[5], dx);
+        a2[0] = __fmul_rn(rc[7], dx);
+      }
+      const float e0 = __fadd_rn(__fadd_rn(a0[i], t0), rc[4]);
+      const float e1 = __fadd_rn(a1[i], t1);
+      const float e2 = __fadd_rn(a2[i], t2);
+      covered |= (fminf(e0, fminf(e1, e2)) >= 0.0f ? 1u : 0u) << (r * bw + c);
+    }
+  }
+  while (covered) {
+    const int i = __ffs(covered) - 1;
+    covered &= covered - 1;
+    const int c = cx + i % bw, r = cy + i / bw;
+    const float dx = __fsub_rn((float)(x0 + c), rc[0]);
+    const float dy = __fsub_rn((float)(y0 + r), rc[1]);
+    const float qi = fminf(fmaxf(plane3(rc[9], rc[10], rc[11], dx, dy), rc[12]), rc[13]);
+    if (qi > kNeg) atomicMax(zbuf + r * tile_w + c, zkey(qi, gf));
   }
 }
 
-__global__ void __launch_bounds__(kCsrPixels) csr_raster_kernel(
-    const float* __restrict__ records,      // (N, 32)
-    const int* __restrict__ sorted_unit,    // flat CSR unit ids
-    const int* __restrict__ seg_start,      // (W,) first unit slot of the tile
-    const int* __restrict__ seg_count,      // (W,) units in the tile
-    const int* __restrict__ tile_xy,        // (W, 2) pixel origin (x0, y0)
-    const int* __restrict__ unit_base,      // (W,) sample * units per sample
-    float* __restrict__ out,                // (W, 5, 128) [q, fid, rq, gq, bq]
-    int pack, int tile_w) {
-  __shared__ float srec[kCsrStage * kRec];
-  const int w = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float px = (float)(tile_xy[2 * w] + tid % tile_w);
-  const float py = (float)(tile_xy[2 * w + 1] + tid / tile_w);
-  const int n_faces = seg_count[w] * pack;
-  const int start = seg_start[w];
-  const int ubase = unit_base[w];
-  Frag best = {kNeg, kBig, 0.0f, 0.0f, 0.0f};
-
-  for (int base = 0; base < n_faces; base += kCsrStage) {
-    const int n = min(kCsrStage, n_faces - base);
-    __syncthreads();  // previous chunk fully consumed
-    for (int i = tid; i < n * kRec; i += kCsrPixels) {
-      const int lf = base + i / kRec;  // face slot within the segment
-      const int unit = sorted_unit[start + lf / pack];
-      const int gf = (ubase + unit) * pack + lf % pack;
-      srec[i] = records[(size_t)gf * kRec + (i % kRec)];
-    }
-    __syncthreads();
-    for (int f = 0; f < n; ++f) shade_face(srec + f * kRec, px, py, best);
+// One face against the 8 blocks of one tile.  Bit k of the result is set
+// when block k may hold a covered pixel.
+__device__ __forceinline__ unsigned live_blocks(const float* rc, int x0, int y0, const CullGrid& grid) {
+  unsigned live = 0;
+#pragma unroll
+  for (int k = 0; k < kCullBlocks; ++k) {
+    const int bx = x0 + (k & grid.col_mask) * grid.bw, by = y0 + (k >> grid.row_shift) * grid.bh;
+    const Rect block = {(float)bx, (float)(bx + grid.bw - 1), (float)by, (float)(by + grid.bh - 1)};
+    if (may_cover(rc, block)) live |= 1u << k;
   }
-  float* o = out + (size_t)w * 5 * kCsrPixels + tid;
-  o[0 * kCsrPixels] = best.q;
-  o[1 * kCsrPixels] = best.fid;
-  o[2 * kCsrPixels] = best.r;
-  o[3 * kCsrPixels] = best.g;
-  o[4 * kCsrPixels] = best.b;
+  return live;
+}
+
+// A warp's 32 faces (planes rc[0..13] and face row gf of each lane; `live`
+// from live_blocks, 0 for a lane without a face) into the z-buffer.  A
+// face keeps 1.5 of its 8 blocks on average but some keep most, so the
+// (face, block) pairs are first spread evenly over the lanes: every lane
+// leaves its planes in the warp's stash and enters its pairs into the
+// warp's queue at the prefix sum of the counts, then lane i takes pair i,
+// i + 32, ... with that face's planes from the stash.  All 32 lanes call it
+// together; `stash` and `queue` are the warp's own.
+__device__ __forceinline__ void scatter_warp(const float* rc, unsigned gf, unsigned live, int x0, int y0,
+                                             int tile_w, const CullGrid& grid, float* stash,
+                                             unsigned char* queue, unsigned long long* zbuf) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  if (live) {
+    float4* mine = reinterpret_cast<float4*>(stash + lane * kStash);
+    mine[0] = make_float4(rc[0], rc[1], rc[2], rc[3]);
+    mine[1] = make_float4(rc[4], rc[5], rc[6], rc[7]);
+    mine[2] = make_float4(rc[8], rc[9], rc[10], rc[11]);
+    mine[3] = make_float4(rc[12], rc[13], __uint_as_float(gf), 0.0f);
+  }
+  const int count = __popc(live);
+  int end = count;  // inclusive prefix sum over the lanes
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int below = __shfl_up_sync(kAll, end, d);
+    if (lane >= d) end += below;
+  }
+  const int total = __shfl_sync(kAll, end, 31);
+  for (int at = end - count; live; live &= live - 1, ++at) {
+    queue[at] = (unsigned char)((lane << 3) | (__ffs(live) - 1));
+  }
+  __syncwarp();
+  for (int base = 0; base < total; base += 32) {
+    const bool on = base + lane < total;
+    if (on) {
+      const int pair = queue[base + lane];
+      const float4* face = reinterpret_cast<const float4*>(stash + (pair >> 3) * kStash);
+      const float4 a = face[0], b = face[1], c = face[2], d = face[3];
+      const float planes[14] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, d.x, d.y};
+      const unsigned row = __float_as_uint(d.z);
+      const int k = pair & 7;
+      const int cx = (k & grid.col_mask) * grid.bw, cy = (k >> grid.row_shift) * grid.bh;
+      if (grid.bw == 4) {
+        scatter_block<4, 4>(planes, row, x0, cx, y0, cy, 4, 4, tile_w, zbuf);
+      } else {
+        scatter_block<0, 0>(planes, row, x0, cx, y0, cy, grid.bw, grid.bh, tile_w, zbuf);
+      }
+    }
+  }
+  __syncwarp();  // the stash and the queue are free again
 }
 
 // build_face_records' attribute plane of corner values (w0, w1, w2):
@@ -154,20 +319,11 @@ __device__ __forceinline__ void attr_plane(float w0, float w1, float w2, float d
   dst[2] = w0;
 }
 
-// One raw corner-pack row -> the record lanes shade_face reads (0..24),
+// One raw corner-pack row (r: its 20 used lanes) -> the record lanes 0..24,
 // exactly as rasterizer.build_face_records computes them.  Raw lanes:
 // [0:3] u, [3:6] v, [6:9] 1/z, [9:18] corner colours (corner-major),
 // [18] face id, [19] validity.
-__device__ __forceinline__ void derive_planes(const float4* __restrict__ row, float* rc) {
-  float r[20];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    const float4 x = row[i];
-    r[4 * i] = x.x;
-    r[4 * i + 1] = x.y;
-    r[4 * i + 2] = x.z;
-    r[4 * i + 3] = x.w;
-  }
+__device__ __forceinline__ void derive_planes(const float* r, float* rc) {
   const float u0 = r[0], u1 = r[1], u2 = r[2];
   const float v0 = r[3], v1 = r[4], v2 = r[5];
   const float q0 = r[6], q1 = r[7], q2 = r[8];
@@ -197,48 +353,139 @@ __device__ __forceinline__ void derive_planes(const float4* __restrict__ row, fl
   }
 }
 
-__global__ void __launch_bounds__(kCsrPixels) csr_planes_raster_kernel(
-    const float* __restrict__ raw,          // (N, 32) raw corner pack
-    const int* __restrict__ sorted_unit,    // flat CSR unit ids
-    const int* __restrict__ seg_start,      // (W,) first unit slot of the tile
-    const int* __restrict__ seg_count,      // (W,) units in the tile
-    const int* __restrict__ tile_xy,        // (W, 2) pixel origin (x0, y0)
-    const int* __restrict__ unit_base,      // (W,) sample * units per sample
-    float* __restrict__ out,                // (W, 5, 128) [q, fid, rq, gq, bq]
-    int pack, int tile_w) {
-  // Derived planes, kPlaneStride floats per face: the odd stride keeps the
-  // per-thread row writes free of bank conflicts; the shading loop reads
-  // one word for all threads (a broadcast).
-  constexpr int kPlaneStride = 25;
-  __shared__ float splanes[kCsrStage * kPlaneStride];
-  const int w = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float px = (float)(tile_xy[2 * w] + tid % tile_w);
-  const float py = (float)(tile_xy[2 * w + 1] + tid / tile_w);
-  const int n_faces = seg_count[w] * pack;
-  const int start = seg_start[w];
-  const int ubase = unit_base[w];
-  Frag best = {kNeg, kBig, 0.0f, 0.0f, 0.0f};
+// Face gf's planes into registers with 16-byte loads: record lanes 0..27 of
+// the record table, or (kRaw) derived from lanes 0..19 of the raw pack.
+template <bool kRaw>
+__device__ __forceinline__ void load_planes(const float* __restrict__ table, unsigned gf, float* rc) {
+  const float4* src = reinterpret_cast<const float4*>(table + (size_t)gf * kRec);
+  float r[kRaw ? 20 : 1];
+#pragma unroll
+  for (int i = 0; i < (kRaw ? 5 : kPlanes / 4); ++i) {
+    const float4 x = __ldg(src + i);
+    float* dst = kRaw ? r : rc;
+    dst[4 * i] = x.x;
+    dst[4 * i + 1] = x.y;
+    dst[4 * i + 2] = x.z;
+    dst[4 * i + 3] = x.w;
+  }
+  if constexpr (kRaw) derive_planes(r, rc);
+}
 
-  for (int base = 0; base < n_faces; base += kCsrStage) {
-    const int n = min(kCsrStage, n_faces - base);
-    __syncthreads();  // previous chunk fully consumed
-    for (int f = tid; f < n; f += kCsrPixels) {
-      const int lf = base + f;  // face slot within the segment
-      const int unit = sorted_unit[start + lf / pack];
-      const int gf = (ubase + unit) * pack + lf % pack;
-      derive_planes(reinterpret_cast<const float4*>(raw + (size_t)gf * kRec),
-                    splanes + f * kPlaneStride);
+// Block b of G takes the work items b, 2G-1-b, 2G+b, ... (a snake over the
+// list, which is sorted by face count, longest first), so the block that
+// starts on the longest list goes on with the shortest.
+__device__ __forceinline__ int snake_item(int round) {
+  const int b = (round & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  return round * gridDim.x + b;
+}
+
+template <bool kRaw>
+__device__ __forceinline__ void csr_kernel_body(
+    const float* __restrict__ table, const int* __restrict__ sorted_unit,
+    const int* __restrict__ seg_start, const int* __restrict__ seg_count,
+    const int* __restrict__ tile_xy, const int* __restrict__ unit_base, float* __restrict__ out,
+    int w_items, int pack, int tile_w) {
+  __shared__ unsigned long long zbuf[kCsrPixels];
+  __shared__ __align__(16) float stash[kCsrThreads / 32][32 * kStash];  // each warp's faces' planes
+  __shared__ unsigned char queue[kCsrThreads / 32][32 * kCullBlocks];   // and its (lane, block) pairs
+  const int tid = threadIdx.x;
+  const CullGrid grid = cull_grid(tile_w);
+  int next_units = seg_count[blockIdx.x];
+  for (int round = 0, w; (w = snake_item(round)) < w_items; ++round) {
+    const int n_units = next_units;
+    if (snake_item(round + 1) < w_items) next_units = seg_count[snake_item(round + 1)];  // lands during this item
+    float* o = out + (size_t)w * 5 * kCsrPixels + tid;
+    if (n_units == 0) {
+      if (tid < kCsrPixels) {
+        o[0 * kCsrPixels] = kNeg;
+        o[1 * kCsrPixels] = kBig;
+        o[2 * kCsrPixels] = o[3 * kCsrPixels] = o[4 * kCsrPixels] = 0.0f;
+      }
+      continue;
+    }
+    const int x0 = tile_xy[2 * w], y0 = tile_xy[2 * w + 1];
+    const int start = seg_start[w];
+    const int ubase = unit_base[w];
+    if (tid < kCsrPixels) zbuf[tid] = 0;
+    __syncthreads();
+    const int n_faces = n_units * pack;
+    for (int base = 0; base < n_faces; base += kCsrThreads) {
+      const int lf = base + tid;  // this thread's face slot within the segment
+      unsigned gf = 0, live = 0;
+      float rc[kPlanes];
+      if (lf < n_faces) {
+        gf = (unsigned)((ubase + sorted_unit[start + lf / pack]) * pack + lf % pack);
+        load_planes<kRaw>(table, gf, rc);
+        live = live_blocks(rc, x0, y0, grid);
+      }
+      scatter_warp(rc, gf, live, x0, y0, tile_w, grid, stash[tid >> 5], queue[tid >> 5], zbuf);
     }
     __syncthreads();
-    for (int f = 0; f < n; ++f) shade_face(splanes + f * kPlaneStride, px, py, best);
+    if (tid < kCsrPixels) {
+      // The pixel's winner, shaded from its planes (read again: one face a pixel).
+      const unsigned long long key = zbuf[tid];
+      Frag best = {kNeg, kBig, 0.0f, 0.0f, 0.0f};
+      if (key != 0) {
+        float rc[kPlanes];
+        load_planes<kRaw>(table, ~(unsigned)key, rc);
+        const float dx = __fsub_rn((float)(x0 + tid % tile_w), rc[0]);
+        const float dy = __fsub_rn((float)(y0 + tid / tile_w), rc[1]);
+        best = {zkey_q(key), rc[14], plane3(rc[16], rc[17], rc[18], dx, dy),
+                plane3(rc[19], rc[20], rc[21], dx, dy), plane3(rc[22], rc[23], rc[24], dx, dy)};
+      }
+      o[0 * kCsrPixels] = best.q;
+      o[1 * kCsrPixels] = best.fid;
+      o[2 * kCsrPixels] = best.r;
+      o[3 * kCsrPixels] = best.g;
+      o[4 * kCsrPixels] = best.b;
+    }
   }
-  float* o = out + (size_t)w * 5 * kCsrPixels + tid;
-  o[0 * kCsrPixels] = best.q;
-  o[1 * kCsrPixels] = best.fid;
-  o[2 * kCsrPixels] = best.r;
-  o[3 * kCsrPixels] = best.g;
-  o[4 * kCsrPixels] = best.b;
+}
+
+#define CSR_KERNEL_ARGS                                                                          \
+  const float* __restrict__ table,         /* (N, 32) face records, or the raw corner pack */  \
+      const int* __restrict__ sorted_unit, /* flat CSR unit ids, ascending within a segment */ \
+      const int* __restrict__ seg_start,   /* (W,) first unit slot of the tile */              \
+      const int* __restrict__ seg_count,   /* (W,) units in the tile */                        \
+      const int* __restrict__ tile_xy,     /* (W, 2) pixel origin (x0, y0) */                  \
+      const int* __restrict__ unit_base,   /* (W,) sample * units per sample */                \
+      float* __restrict__ out,             /* (W, 5, 128) [q, fid, rq, gq, bq] */              \
+      int w_items, int pack, int tile_w
+
+__global__ void __launch_bounds__(kCsrThreads, 1024 / kCsrThreads) csr_raster_kernel(CSR_KERNEL_ARGS) {
+  csr_kernel_body<false>(table, sorted_unit, seg_start, seg_count, tile_xy, unit_base, out, w_items,
+                         pack, tile_w);
+}
+
+__global__ void __launch_bounds__(kCsrThreads, 1024 / kCsrThreads) csr_planes_raster_kernel(CSR_KERNEL_ARGS) {
+  csr_kernel_body<true>(table, sorted_unit, seg_start, seg_count, tile_xy, unit_base, out, w_items,
+                        pack, tile_w);
+}
+
+// ---- The dense kernel: one thread per pixel, every listed face ----
+
+// Evaluate one staged face record at (px, py) and keep it when it covers
+// the pixel and is strictly nearer (larger interpolated 1/z) than the
+// current winner.
+__device__ __forceinline__ void shade_face(const float* rc, float px, float py, Frag& best) {
+  const float4* r4 = reinterpret_cast<const float4*>(rc);
+  const float4 a = r4[0];  // u0 v0 A0 B0
+  const float4 b = r4[1];  // ar A1 B1 A2
+  const float4 c = r4[2];  // B2 Qa Qb q0
+  const float dx = __fsub_rn(px, a.x);
+  const float dy = __fsub_rn(py, a.y);
+  const float e0 = plane3(a.z, a.w, b.x, dx, dy);
+  const float e1 = plane2(b.y, b.z, dx, dy);
+  const float e2 = plane2(b.w, c.x, dx, dy);
+  if (fminf(e0, fminf(e1, e2)) >= 0.0f) {
+    const float4 d = r4[3];  // qmin qmax fid pad
+    const float qi = fminf(fmaxf(plane3(c.y, c.z, c.w, dx, dy), d.x), d.y);
+    if (qi > best.q) {
+      const float4 e = r4[4], f = r4[5], g = r4[6];  // lanes 16..27
+      best = {qi, d.z, plane3(e.x, e.y, e.z, dx, dy), plane3(e.w, f.x, f.y, dx, dy),
+              plane3(f.z, f.w, g.x, dx, dy)};
+    }
+  }
 }
 
 __global__ void __launch_bounds__(1024) tile_raster_kernel(
@@ -248,7 +495,7 @@ __global__ void __launch_bounds__(1024) tile_raster_kernel(
     const int* __restrict__ tile_xy,        // (W, 2) pixel origin (x0, y0)
     float* __restrict__ out,                // (W, 4, P) [zq, rq, gq, bq]
     int k_cap, int tile_w) {
-  __shared__ float srec[kTileStage * kRec];
+  __shared__ __align__(16) float srec[kTileStage * kRec];
   const int w = blockIdx.x;
   const int tid = threadIdx.x;
   const int p = blockDim.x;
@@ -275,6 +522,15 @@ __global__ void __launch_bounds__(1024) tile_raster_kernel(
   o[3 * p] = best.b;
 }
 
+// CSR blocks that the card holds at once: the CSR kernels' grid.
+int resident_blocks(const void* kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kCsrThreads, 0);
+  return max(1, sms * per_sm);
+}
+
 }  // namespace
 
 extern "C" int csr_raster_launch(const void* records, const void* sorted_unit,
@@ -282,10 +538,11 @@ extern "C" int csr_raster_launch(const void* records, const void* sorted_unit,
                                  const void* tile_xy, const void* unit_base, void* out,
                                  int w_items, int pack, int tile_w, void* stream) {
   if (w_items > 0) {
-    csr_raster_kernel<<<w_items, kCsrPixels, 0, (cudaStream_t)stream>>>(
+    static const int resident = resident_blocks((const void*)csr_raster_kernel);
+    csr_raster_kernel<<<min(w_items, resident), kCsrThreads, 0, (cudaStream_t)stream>>>(
         (const float*)records, (const int*)sorted_unit, (const int*)seg_start,
         (const int*)seg_count, (const int*)tile_xy, (const int*)unit_base, (float*)out,
-        pack, tile_w);
+        w_items, pack, tile_w);
   }
   return (int)cudaGetLastError();
 }
@@ -295,10 +552,11 @@ extern "C" int csr_planes_raster_launch(const void* raw, const void* sorted_unit
                                         const void* tile_xy, const void* unit_base, void* out,
                                         int w_items, int pack, int tile_w, void* stream) {
   if (w_items > 0) {
-    csr_planes_raster_kernel<<<w_items, kCsrPixels, 0, (cudaStream_t)stream>>>(
+    static const int resident = resident_blocks((const void*)csr_planes_raster_kernel);
+    csr_planes_raster_kernel<<<min(w_items, resident), kCsrThreads, 0, (cudaStream_t)stream>>>(
         (const float*)raw, (const int*)sorted_unit, (const int*)seg_start,
         (const int*)seg_count, (const int*)tile_xy, (const int*)unit_base, (float*)out,
-        pack, tile_w);
+        w_items, pack, tile_w);
   }
   return (int)cudaGetLastError();
 }

@@ -23,14 +23,26 @@ Both resolve visibility with the TPU kernels' rule: the largest clamped
 interpolated 1/z wins, exact ties go to the smallest global face id (the
 earliest-drawn face, as GL does).
 
+What bounds the CSR kernels on an H100 is issue slots and latency,
+not bytes or operations: a few hundred faces per non-empty tile, each
+covering half a pixel of it on average.  So the kernels give every face a
+thread, which culls its face against the tile's 8 blocks of 16 pixels
+(cull_rectangles) with an exact test (edge_maxima_plain is its
+plain version: an edge plane that is negative where it is largest over a
+rectangle is negative on all of it), evaluates only the pixels of the
+blocks that are left, and enters the covered ones into a shared-memory
+z-buffer with an atomic max on (1/z, smallest face row first).
+
 A wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain twin only for CPU tensors; there is no fallback from one to the
 other.  Each wrapper counts its launches in `<wrapper>.launches`.  The
 twins evaluate the same planes in the same order (((a*dx) + (b*dy)) + c,
 each op rounded on its own) and vectorise over (work items x face chunk x
 pixels): a first-max torch.argmax inside a chunk, then a strict `>` merge
-across chunks, which picks the same winner as the kernels' sequential
-strict loop over ascending face ids.
+across chunks: per pixel the largest clamped 1/z and, among equals, the
+first face of the list (the smallest face row, since a list's rows
+ascend), which is the winner the kernels' z-buffer keeps.  The twins cull
+nothing: they are the specification the culling kernels are held to.
 """
 from __future__ import annotations
 
@@ -50,8 +62,8 @@ RAW_WIDTH = 32  # raw corner-pack row (csr_planes_raster); 20 lanes used
 NEG = -1e30
 BIG = 1e30
 CSR_TILE_PIXELS = 128
-# Faces per twin chunk; the CUDA kernels stage the same counts in shared
-# memory (kCsrStage / kTileStage in csrc/raster.cu).
+# Faces per twin chunk (tile_raster's kernel stages TILE_STAGE faces too;
+# the CSR kernels stage nothing).
 CSR_STAGE = 192
 TILE_STAGE = 128
 # Elements per (work items, chunk, pixels) temporary of the twins.
@@ -83,41 +95,48 @@ def _nvcc() -> str:
     )
 
 
-def load_library():
+def build_library(extra_flags: tuple = (), source: Path = SOURCE):
     """Build csrc/raster.cu with nvcc into _build/ (keyed by a hash of the
-    source and flags) on first use, load it with ctypes and return it."""
+    source and flags) unless it is there already, and load it with ctypes.
+    Returns (library, nvcc seconds, nvcc log, path).  The package builds
+    its own source with no extra flags; tools/raster_ablation.py passes
+    -D flags, or another version of the source to compare with."""
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    key = hashlib.sha256(Path(source).read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"raster_{key}.so"
+    seconds, log = 0.0, ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"raster_{key}.{os.getpid()}.tmp.so"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *flags, "-o", str(tmp), str(source)],
+            capture_output=True, text=True,
+        )
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {source}:\n{log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.csr_raster_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+    lib.csr_raster_launch.restype = ci
+    lib.csr_planes_raster_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+    lib.csr_planes_raster_launch.restype = ci
+    lib.tile_raster_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+    lib.tile_raster_launch.restype = ci
+    return lib, seconds, log, str(so)
+
+
+def load_library():
+    """The package's kernels: built on first use, then cached."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = SOURCE.read_bytes()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"raster_{key}.so"
-        seconds, log = 0.0, ""
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = BUILD_DIR / f"raster_{key}.{os.getpid()}.tmp.so"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.csr_raster_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp]
-        lib.csr_raster_launch.restype = ci
-        lib.csr_planes_raster_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp]
-        lib.csr_planes_raster_launch.restype = ci
-        lib.tile_raster_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
-        lib.tile_raster_launch.restype = ci
-        BUILD_INFO.update(seconds=seconds, log=log, path=str(so))
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib, seconds, log, path = build_library()
+            BUILD_INFO.update(seconds=seconds, log=log, path=path)
+        return _lib
 
 
 def reset_launch_counts() -> None:
@@ -204,6 +223,51 @@ def _coverage(rec, px, py):
         rec[..., 12:13], rec[..., 13:14],
     )
     return inside, qi
+
+
+def cull_rectangles(tile_w: int):
+    """The rectangles the CSR kernels cull a face against, as
+    (x_lo, x_hi, y_lo, y_hi) pixel offsets from the origin of a 128-pixel
+    tile whose rows are tile_w wide, bounds included: the tile's 8 blocks
+    of bw x bh = 16 pixels (4 x 4 where the tile is at least 4 pixels each
+    way) in row-major order of the block grid."""
+    if tile_w <= 0 or CSR_TILE_PIXELS % tile_w:
+        raise ValueError(f"tile_w {tile_w} must divide {CSR_TILE_PIXELS}")
+    tile_h = CSR_TILE_PIXELS // tile_w
+    bh = min(4, tile_h)
+    bw = 16 // bh
+    if bw > tile_w:
+        bw, bh = tile_w, 16 // tile_w
+    per_row = tile_w // bw
+    rects = []
+    for k in range(8):
+        bx, by = (k % per_row) * bw, (k // per_row) * bh
+        rects.append((bx, bx + bw - 1, by, by + bh - 1))
+    return rects
+
+
+def edge_maxima_plain(records, x_lo, x_hi, y_lo, y_hi):
+    """Plain version of the CSR kernels' cull: each face's three
+    edge planes at the pixel of the rectangle [x_lo, x_hi] x [y_lo, y_hi]
+    where that plane is largest (the signs of its two coefficients pick
+    the corner), with _coverage's operations in its order.
+
+    records (..., 32); the bounds are pixel coordinates broadcastable to
+    records[..., 0].  Returns (..., 3).  Every operation is rounded on its
+    own and rounding is monotone, so a plane is nowhere on the rectangle
+    above its value here: a face with any maximum < 0 covers no pixel of
+    the rectangle."""
+    u0, v0 = records[..., 0], records[..., 1]
+    x_lo, x_hi, y_lo, y_hi = (torch.as_tensor(t, dtype=records.dtype, device=records.device)
+                              for t in (x_lo, x_hi, y_lo, y_hi))
+
+    def plane_max(ja, jb):
+        a, b = records[..., ja], records[..., jb]
+        dx = torch.where(a >= 0, x_hi, x_lo) - u0
+        dy = torch.where(b >= 0, y_hi, y_lo) - v0
+        return a * dx + b * dy
+
+    return torch.stack([plane_max(2, 3) + records[..., 4], plane_max(5, 6), plane_max(7, 8)], dim=-1)
 
 
 def _winner_planes(records, best_gf, px, py):
@@ -329,6 +393,8 @@ def _csr_call(wrapper, plain, table, sorted_unit, seg_start, seg_count, tile_xy,
     name = wrapper.__name__
     if tile_w <= 0 or CSR_TILE_PIXELS % tile_w:
         raise ValueError(f"{name}: tile_w {tile_w} must divide {CSR_TILE_PIXELS}")
+    if pack <= 0:
+        raise ValueError(f"{name}: pack {pack} must be positive")
     args = (table, sorted_unit, seg_start, seg_count, tile_xy, unit_base)
     dev = table.device
     if dev.type == "cpu":

@@ -28,7 +28,7 @@ selects the kernel (CSR when binning == "csr", or "auto" with more than
 across and is ignored: the plain twins take the XLA fallback's place on the
 CPU.  The JAX package's TPU machinery (group scan under lax.cond, 8-slot
 merges, MXU prefix sums, one-hot histograms, inverse-permutation gathers)
-is replaced by plain torch ops (sort, bincount, cumsum, indexing).
+is replaced by plain torch ops (sort, searchsorted, cumsum, indexing).
 """
 from __future__ import annotations
 
@@ -53,8 +53,8 @@ class RasterConfig:
     TPU kernels' schedule are kept so configs copy across:
     `chunk`/`vis_mem_budget` (XLA visibility loop), `use_pallas`,
     `csr_chunk` (only its divisibility by csr_pack matters: the CUDA kernels
-    stage 192 faces regardless), `worklist` (both orderings are the same
-    stable sort here) and `csr_group`.  csr_kernel picks the CSR kernel:
+    stage nothing), `worklist` (both orderings are the same stable sort
+    here) and `csr_group`.  csr_kernel picks the CSR kernel:
     "slots8" (csr_raster, prebuilt face records) or "planes64"
     (csr_planes_raster, raw corner pack); any other value raises."""
 
@@ -236,11 +236,13 @@ def bin_faces_csr(fu, fv, valid, cfg: RasterConfig, th=None, tw=None):
         key, dropped = tier_keys(0, f, s)
     key = torch.sort(key, dim=1).values  # keys are unique per sample
     sorted_unit = torch.where(key < n_tiles * f, key % f, torch.full_like(key, f)).int()
-    tile_flat = key // f  # sentinel pairs land in bin n_tiles
-    rows = torch.arange(b, device=dev)[:, None] * (n_tiles + 1)
-    counts = torch.bincount((tile_flat + rows).reshape(-1), minlength=b * (n_tiles + 1))
-    counts = counts.reshape(b, n_tiles + 1)[:, :n_tiles]
-    offsets = torch.cumsum(counts, dim=1) - counts
+    # Tile t's pairs are the sorted keys in [t * f, (t + 1) * f): their
+    # bounds by binary search (no histogram, whose output torch.bincount
+    # would size from the data with a host sync, and no atomics).
+    bounds = torch.arange(n_tiles + 1, device=dev) * f
+    first = torch.searchsorted(key, bounds[None, :].expand(b, -1).contiguous())
+    offsets = first[:, :n_tiles]
+    counts = first[:, 1:] - offsets
     return sorted_unit, offsets, counts, dropped
 
 

@@ -18,6 +18,7 @@ from deepim_tpu_torch.models import FlowNetDeepIM
 from deepim_tpu_torch.ops.masks import box_fill
 from deepim_tpu_torch.render import raster_kernels as rk
 from deepim_tpu_torch.render.rasterizer import KERNELS, RasterConfig, kernel_inputs, rasterize
+from deepim_tpu_torch.render.stress import stress_work_list
 
 torch.set_num_threads(2)
 
@@ -183,3 +184,25 @@ def test_planes_wrapper_validates_card_inputs():
         rk.csr_planes_raster(raw, *csr[:4], i32.cpu(), 4, 8)
     with pytest.raises(ValueError):
         rk.csr_planes_raster(raw, *csr, 4, 3)  # tile_w must divide 128
+
+
+@pytest.mark.parametrize("pack,tile_w", [(1, 8), (4, 8), (1, 16), (4, 16), (4, 128), (1, 2)])
+def test_csr_kernels_equal_twins_on_stress_list(pack, tile_w):
+    """Both CSR kernels on the hand-built stress list (one tile of 1,328
+    faces: six passes of a block, the last partial; exact copies at higher
+    face ids; degenerate and invalid faces; empty items), with 4x4 cull
+    blocks (tile_w 8, 16) and the general block shapes (128, 2): bit-equal
+    to the twin, ties to the smallest id."""
+    dev = _need_card()
+    n = 1328
+    records, raw, csr = stress_work_list(pack, tile_w, n_faces=n, device=dev)
+    ref = rk.csr_raster_plain(records, *csr)
+    hit = ref[:, 0] > 0
+    fid = ref[:, 1][hit].long() % n
+    assert hit.any() and (fid < n // 4).any() and not (fid >= n - n // 4).any()
+    for kernel, table in ((rk.csr_raster, records), (rk.csr_planes_raster, raw)):
+        before = kernel.launches
+        out = kernel(table, *csr)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(out, ref), kernel.__name__

@@ -343,6 +343,10 @@ def test_wrappers_dispatch_on_device():
                         torch.zeros(2, dtype=torch.int32), 4, 8)
     assert out.shape == (2, 5, 128) and (out[:, 1] == 1e30).all()
     assert tk.csr_raster.launches == 0 and tk.tile_raster.launches == 0
+    with pytest.raises(ValueError):  # a unit holds at least one face
+        tk.csr_raster(rec, torch.zeros(4, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
+                      torch.tensor([1, 0], dtype=torch.int32), torch.zeros((2, 2), dtype=torch.int32),
+                      torch.zeros(2, dtype=torch.int32), 0, 8)
     with pytest.raises(ValueError):
         tk.tile_raster(rec.to("meta"), torch.zeros((2, 4), dtype=torch.int32, device="meta"),
                        torch.zeros(2, dtype=torch.int32, device="meta"),
@@ -364,3 +368,158 @@ def test_engine_configs_copy_across():
         f.name for f in dataclasses.fields(jr.RasterConfig)]
     assert [f.name for f in dataclasses.fields(TEngineConfig)] == [
         f.name for f in dataclasses.fields(JEngineConfig)]
+
+
+# --- The CSR kernels' cull (edge_maxima_plain is its plain version) ---
+
+CULL_TILE_WS = [4, 8, 16, 32, 128]
+
+
+def _item_faces(sorted_unit, seg_start, seg_count, tile_xy, unit_base, pack, tile_w):
+    """A CSR work list as dense (W, C) global face ids in list order and
+    their live mask."""
+    faces = seg_count.long() * pack
+    pos = torch.arange(max(int(faces.max()), 1))
+    live = pos[None, :] < faces[:, None]
+    unit = sorted_unit[(seg_start.long()[:, None] + pos[None, :] // pack).clamp(max=sorted_unit.numel() - 1)]
+    gf = (unit_base.long()[:, None] + unit.long()) * pack + pos[None, :] % pack
+    return torch.where(live, gf, torch.zeros_like(gf)), live
+
+
+def _rect_pixels(rect, tile_w):
+    """Indices (into a tile's 128 row-major pixels) of a cull rectangle."""
+    x_lo, x_hi, y_lo, y_hi = rect
+    return torch.tensor([y * tile_w + x for y in range(y_lo, y_hi + 1) for x in range(x_lo, x_hi + 1)])
+
+
+def _culls(records, gf, tile_xy, tile_w):
+    """For each of the tile's 8 blocks: (pixel indices, rejected (W, C))."""
+    rec = records[gf]
+    x0, y0 = tile_xy[:, 0:1], tile_xy[:, 1:2]
+    for rect in tk.cull_rectangles(tile_w):
+        x_lo, x_hi, y_lo, y_hi = rect
+        maxima = tk.edge_maxima_plain(rec, x0 + x_lo, x0 + x_hi, y0 + y_lo, y0 + y_hi)
+        yield _rect_pixels(rect, tile_w), (maxima < 0).any(-1)
+
+
+def _assert_cull_is_exact(records, gf, live, tile_xy, tile_w):
+    """rejected => no pixel of the rectangle passes the inside test.
+    Returns the share of live (face, 16-pixel block) pairs the cull rejects."""
+    px, py = tk._pixel_coords(tile_xy, tk.CSR_TILE_PIXELS, tile_w)
+    inside, _ = tk._coverage(records[gf], px, py)
+    n_rej = 0
+    for pix, rejected in _culls(records, gf, tile_xy, tile_w):
+        covered = inside[:, :, pix].any(-1)
+        assert not (covered & rejected & live).any(), f"tile_w {tile_w}: a culled face covers a pixel"
+        n_rej += int((rejected & live).sum())
+    return n_rej / (8 * int(live.sum()))
+
+
+@pytest.mark.parametrize("tile_w", CULL_TILE_WS + [1, 2, 64])
+def test_cull_rectangles_tile_the_tile(tile_w):
+    """8 blocks of 16 pixels that cover each pixel of the tile once."""
+    rects = tk.cull_rectangles(tile_w)
+    blocks = [_rect_pixels(r, tile_w).tolist() for r in rects]
+    assert len(blocks) == 8 and all(len(b) == 16 for b in blocks)
+    assert sorted(sum(blocks, [])) == list(range(128))
+    if tile_w in (4, 8, 16, 32):
+        assert all(r[1] - r[0] == 3 and r[3] - r[2] == 3 for r in rects)
+    with pytest.raises(ValueError):
+        tk.cull_rectangles(3)
+
+
+def _base_csr_inputs(tile_w):
+    """Kernel inputs of the ico4 BASE scene binned over 128-pixel tiles of
+    width tile_w (CPU)."""
+    arrs, _, _ = _reference("ico4", "csr")
+    cfg = _cfgs(binning="csr", csr_tile_w=tile_w, csr_tile_h=128 // tile_w)[1]
+    (name, args), = tr.kernel_inputs(*(torch.from_numpy(x) for x in arrs), torch.from_numpy(K_MAT), cfg,
+                                     device="cpu")
+    assert name == "csr_raster"
+    return args
+
+
+@pytest.mark.parametrize("tile_w", CULL_TILE_WS)
+def test_cull_rule_on_base_scene(tile_w):
+    """On the BASE CSR scene's own work list: a face the cull rejects for
+    one of the tile's blocks covers none of that block's pixels, and the
+    cull rejects most (face, block) pairs of a fine mesh."""
+    records, *csr = _base_csr_inputs(tile_w)
+    gf, live = _item_faces(*csr)
+    assert _assert_cull_is_exact(records, gf, live, csr[3], tile_w) > 0.5
+
+
+@pytest.mark.parametrize("tile_w", CULL_TILE_WS)
+def test_cull_rule_on_random_records(rng, tile_w):
+    """Random records with zero (and -0.0), tiny, ordinary, huge and
+    overflowing coefficients, negative-area flags and off-grid anchors."""
+    n = 3000
+    pool = np.array([0.0, -0.0, 1e-30, -1e-30, 1e15, -1e15, 1e36, -1e36], np.float32)
+
+    def coeffs(shape):
+        plain = rng.uniform(-3, 3, shape).astype(np.float32)
+        special = pool[rng.randint(0, len(pool), shape)]
+        return np.where(rng.rand(*shape) < 0.35, special, plain)
+
+    rec = np.zeros((n, 32), np.float32)
+    rec[:, 0] = rng.uniform(-60, 200, n)
+    rec[:, 1] = rng.uniform(-60, 160, n)
+    rec[:, [2, 3, 5, 6, 7, 8]] = coeffs((n, 6))
+    rec[:, 4] = np.where(rng.rand(n) < 0.2, -1e30, rng.uniform(-50, 400, n))
+    rec[:, 13] = 1.0
+    records = torch.from_numpy(rec)
+    tile_h = 128 // tile_w
+    origins = [(tx * tile_w, ty * tile_h) for tx in range(0, 128 // tile_w, max(1, 32 // tile_w))
+               for ty in range(0, 96 // tile_h, max(1, 24 // tile_h))][:12]
+    tile_xy = torch.tensor(origins, dtype=torch.int32)
+    gf = torch.arange(n)[None, :].expand(len(origins), n)
+    share = _assert_cull_is_exact(records, gf, torch.ones_like(gf, dtype=torch.bool), tile_xy, tile_w)
+    assert 0.2 < share < 1.0
+    # Every negative-area flag rejects its face everywhere.
+    flagged = torch.from_numpy(rec[:, 4] == -1e30) & torch.isfinite(records[:, 2:4]).all(-1) \
+        & (records[:, 2:4].abs() < 1e30).all(-1)
+    for _, rejected in _culls(records, gf, tile_xy, tile_w):
+        assert rejected[:, flagged].all()
+
+
+@pytest.mark.parametrize("tile_w", [4, 8, 32])
+def test_culled_lists_give_the_full_lists_output(tile_w):
+    """csr_raster_plain fed, for each of the tile's blocks, only the faces
+    the cull keeps for that block equals csr_raster_plain on the full
+    lists on that block's pixels, bit for bit (winners, face ids and
+    colours)."""
+    records, *csr = _base_csr_inputs(tile_w)
+    full = tk.csr_raster_plain(records, *csr)
+    assert (full[:, 0] > 0).any()
+    gf, live = _item_faces(*csr)
+    tile_xy = csr[3]
+    for pix, rejected in _culls(records, gf, tile_xy, tile_w):
+        keep = live & ~rejected
+        counts = keep.sum(1)
+        kept = torch.cat([gf[w][keep[w]] for w in range(gf.shape[0])]).int()
+        start = (torch.cumsum(counts, 0) - counts).int()
+        out = tk.csr_raster_plain(records, kept, start, counts.int(), tile_xy,
+                                  torch.zeros_like(start), 1, tile_w)
+        assert torch.equal(out[:, :, pix], full[:, :, pix])
+
+
+@pytest.mark.parametrize("pack,tile_w", [(1, 8), (4, 8), (1, 16), (4, 16), (4, 128), (1, 2)])
+def test_stress_list_twins(pack, tile_w):
+    """The hand-built stress work list (stress.py) through both twins: the
+    planes twin equals the slots8 twin, empty items keep their constants,
+    exact copies at higher ids lose their ties, and the segment separators
+    are never read."""
+    from deepim_tpu_torch.render.stress import stress_work_list
+
+    n = 272
+    records, raw, csr = stress_work_list(pack, tile_w, n_faces=n)
+    out = tk.csr_raster_plain(records, *csr)
+    assert torch.equal(tk.csr_planes_raster_plain(raw, *csr), out)
+    count = csr[2]
+    assert (out[count == 0][:, 0] == tk.NEG).all() and (out[count == 0][:, 1] == tk.BIG).all()
+    hit = out[:, 0] > 0
+    assert hit[count * pack >= 100].any(1).all()
+    fid = out[:, 1][hit].long() % n
+    assert (fid < n // 4).any() and not (fid >= n - n // 4).any()
+    gf, live = _item_faces(*csr)
+    assert int(gf[live].max()) < 2 * n and int(live[0].sum()) == n
