@@ -9,16 +9,21 @@ Phases (each raises on failure; the script then exits non-zero):
      and the nvcc build of csrc/raster.cu;
   2. each raster kernel against its plain PyTorch twin on the card, on the
      kernel inputs of one render of its path's scene (480x640; 20,480-face
-     icospheres, batch 16 for csr_raster and batch 4 for csr_planes_raster,
-     the 320-face scene for tile_raster): hit masks and face ids exact, q to
-     1e-6, rgb to 5e-3; the kernel's device time per launch (20 launches
-     replayed as one CUDA graph, so the wrapper's host share stays out),
-     the time of a single call between CUDA events (host share included,
-     which is larger for kernels this short) and the twin's;
-     csr_planes_raster equal to csr_raster on the same render; and both CSR
-     kernels bit-equal to the twin on a hand-built stress work list
-     (render/stress.py: a 1,328-face tile, exact 1/z ties, degenerate and
-     invalid faces, empty items; pack 1 and 4, tile_w 8, 16, 128 and 2);
+     icospheres, batch 16 for csr_raster and batch 4 for csr_planes_raster;
+     for tile_raster the light shape, the batch-2 320-face scene, and the
+     heavy one, batch 16 of 1,280-face icospheres with lists of up to 512
+     faces, none of which may reach that cap): hit masks and face ids
+     exact, q to 1e-6, rgb to 5e-3; the kernel's device time per launch (20
+     launches replayed as one CUDA graph, so the wrapper's host share stays
+     out), the time of a single call between CUDA events (host share
+     included, which is larger for kernels this short) and the twin's;
+     csr_planes_raster equal to csr_raster on the same render; and every
+     kernel bit-equal to its twin on the hand-built stress work lists
+     (render/stress.py.  CSR: a 1,328-face tile, exact 1/z ties, degenerate
+     and invalid faces, empty items; pack 1 and 4, tile_w 8, 16, 128 and 2.
+     Dense: lists of 0 to 512 faces (one more and one fewer than a pass of
+     the kernel among them) in ascending, descending and shuffled order with
+     ties the first in the list must win; six tile shapes);
   3. the main path on the CSR kernel: refine(), 4 iterations, batch 16,
      20,480-face meshes, FAST_TEST network (encoder + SE(3) head), seeded
      random weights with a small nonzero translation head, one warm-up and
@@ -71,7 +76,7 @@ from deepim_tpu_torch.models.flownet import FlowNetDeepIM  # noqa: E402
 from deepim_tpu_torch.ops.masks import box_fill  # noqa: E402
 from deepim_tpu_torch.render import raster_kernels as rk  # noqa: E402
 from deepim_tpu_torch.render.rasterizer import KERNELS, kernel_inputs, rasterize  # noqa: E402
-from deepim_tpu_torch.render.stress import stress_work_list  # noqa: E402
+from deepim_tpu_torch.render.stress import stress_tile_list, stress_work_list  # noqa: E402
 from deepim_tpu_torch.tools.timing import graph_launch_ms  # noqa: E402
 
 H, W = 480, 640
@@ -80,6 +85,13 @@ N_CALLS = 5
 # 3.35 TB/s, fp32 outside the tensor cores at 67 TFLOP/s.  A face-pixel
 # evaluation is 22 fp32 operations (2 subtractions for dx/dy, 3 edge planes
 # 10, the 1/z plane 4, its clamp 2, the inside test 3, the depth test 1).
+# The CSR kernels are charged one at every pixel of the tile for every listed
+# face: more than an algorithm that culls needs, and still below their bytes,
+# so their bound is the byte bound either way.  tile_raster, whose heavy
+# shape that count would put above its bytes, is charged what no algorithm
+# can avoid: the 22 operations at each pixel a listed face really covers
+# (counted from this run's inputs, covered_pairs) and 12 per listed face
+# (its three edge planes once, to learn whether it touches the tile at all).
 # csr_planes_raster reads 20 lanes (80 bytes) of raw row per face-tile pair
 # and derives the planes with 78 operations per pair (area and sign 13,
 # edge planes 12, the 1/z plane 10 and its clamp bounds 4, three colour
@@ -90,6 +102,7 @@ OPS_PER_PAIR = 22
 REC_BYTES = 4 * rk.REC_WIDTH
 RAW_BYTES = 4 * 20
 DERIVE_OPS = 78
+OPS_PER_LISTED_FACE = 12
 PLAIN = {"csr_raster": rk.csr_raster_plain, "csr_planes_raster": rk.csr_planes_raster_plain,
          "tile_raster": rk.tile_raster_plain}
 REPLACES = {
@@ -114,6 +127,10 @@ PIXEL_MEANS = (123.68, 116.779, 103.939)
 # (pack, tile_w) of the stress work lists: 4x4 cull blocks at tile_w 8 and
 # 16, the kernels' general block shapes at 128 (16x1) and 2 (2x8).
 STRESS_CASES = ((1, 8), (4, 8), (1, 16), (4, 16), (4, 128), (1, 2))
+# (tile_h, tile_w) of the dense stress lists: 4x4 cull blocks in tiles of 64,
+# 16, 8 and 2 blocks, and the general block shapes 16x1 (1x32) and 2x8 (16x6).
+DENSE_STRESS_TILES = ((8, 128), (16, 16), (8, 16), (8, 4), (1, 32), (16, 6))
+HEAVY_K_CAP = 512     # RasterConfig's default max_faces_per_tile
 
 
 def log(msg: str) -> None:
@@ -145,12 +162,26 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def covered_pairs(records, tf_global, counts, tile_xy, tile_h: int, tile_w: int) -> int:
+    """The (face, pixel) pairs of a dense work list in which the listed face
+    covers the pixel (the plain inside test on the card, 64 items at a time)."""
+    k_max = int(counts.max())
+    pos = torch.arange(k_max, device=counts.device)
+    total = 0
+    for w0 in range(0, counts.numel(), 64):
+        sl = slice(w0, w0 + 64)
+        live = pos[None, :] < counts[sl, None]
+        px, py = rk._pixel_coords(tile_xy[sl], tile_h * tile_w, tile_w)
+        inside, _ = rk._coverage(records[tf_global[sl, :k_max].long().clamp(min=0)], px, py)
+        total += int((inside & live[..., None]).sum())
+    return total
+
+
 def bound(name: str, args) -> tuple[float, str, dict]:
     """Least time for this launch's work: bytes it must move (each face
     record or raw row once per tile it is binned to, the lists, the output)
-    at 3.35 TB/s, or its face-pixel (and plane-derivation) operations at
-    67 TFLOP/s."""
-    derive = 0
+    at 3.35 TB/s, or its operations at 67 TFLOP/s (see the bound model at
+    the top for what each kernel is charged)."""
     if name in ("csr_raster", "csr_planes_raster"):
         _, _, _, seg_count, _, _, pack, _ = args
         n_items, pix = seg_count.numel(), rk.CSR_TILE_PIXELS
@@ -159,20 +190,25 @@ def bound(name: str, args) -> tuple[float, str, dict]:
         row = REC_BYTES if name == "csr_raster" else RAW_BYTES
         derive = 0 if name == "csr_raster" else faces * DERIVE_OPS
         nbytes = faces * row + units * 4 + n_items * (3 * 4 + 8) + n_items * 5 * pix * 4
+        ops = faces * pix * OPS_PER_PAIR + derive
+        info = {}
     else:
         _, _, counts, _, th, tw = args
         n_items, pix = counts.numel(), th * tw
         faces = int(counts.sum())
         nbytes = faces * (REC_BYTES + 4) + n_items * (4 + 8) + n_items * 4 * pix * 4
-    ops = faces * pix * OPS_PER_PAIR + derive
+        covered = covered_pairs(*args) if faces else 0
+        ops = covered * OPS_PER_PAIR + faces * OPS_PER_LISTED_FACE
+        info = {"covered_face_pixel_pairs": covered}
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
-    info = {"work_items": n_items, "face_tile_pairs": faces, "bytes": nbytes, "ops": ops}
+    info.update(work_items=n_items, face_tile_pairs=faces, bytes=nbytes, ops=ops)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), info
 
 
-def check_kernel(name: str, args, card: str) -> dict:
-    """Kernel vs plain twin on the same card inputs; times both."""
+def check_kernel(name: str, args, card: str, shape: str = "") -> dict:
+    """Kernel vs plain twin on the same card inputs; times both.  `shape`
+    names the inputs in the log where a kernel is held at more than one."""
     out = KERNELS[name](*args)
     ref = PLAIN[name](*args)
     torch.cuda.synchronize()
@@ -195,11 +231,11 @@ def check_kernel(name: str, args, card: str) -> dict:
     call_ms = cuda_ms(lambda: KERNELS[name](*args), reps=20)
     plain_ms = cuda_ms(lambda: PLAIN[name](*args), reps=10, warmup=1)
     b_ms, b_by, info = bound(name, args)
-    if csr:  # what the launch's time hangs on: how many blocks have faces, and their lists
-        faces = args[3][args[3] > 0].float() * args[6]
-        info.update(nonempty_items=faces.numel(), mean_faces=round(float(faces.mean()), 1),
-                    max_faces=int(faces.max()))
-    log(f"[{name}] vs plain twin: {int(hit.sum())} hit px, max |dq| {q_err:.3g}, max |drgb| {rgb_err:.3g}, "
+    # What the launch's time hangs on: how many items have faces, and their lists.
+    faces = args[3][args[3] > 0].float() * args[6] if csr else args[2][args[2] > 0].float()
+    info.update(nonempty_items=faces.numel(), mean_faces=round(float(faces.mean()), 1),
+                max_faces=int(faces.max()))
+    log(f"[{(name + ' ' + shape).strip()}] vs plain twin: {int(hit.sum())} hit px, max |dq| {q_err:.3g}, max |drgb| {rgb_err:.3g}, "
         f"max raw err {raw_err:.3g}; kernel {ms:.4f} ms per launch on the device ({call_ms:.4f} ms per single call "
         f"with its host share), twin {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
         f"({b_by}; {info}) [{card}]")
@@ -208,8 +244,8 @@ def check_kernel(name: str, args, card: str) -> dict:
 
 
 def stress_check(card: str) -> None:
-    """Both CSR kernels against the twin on the stress work list: hits,
-    face ids and every value exact (max abs error 0)."""
+    """Every kernel against its twin on the stress work lists: hits, face
+    ids and every value exact (max abs error 0)."""
     for pack, tile_w in STRESS_CASES:
         records, raw, csr = stress_work_list(pack, tile_w, device="cuda")
         ref = rk.csr_raster_plain(records, *csr)
@@ -224,6 +260,18 @@ def stress_check(card: str) -> None:
                     f"{int((out[:, 1] != ref[:, 1]).sum())} face ids")
     log(f"[stress list] csr_raster and csr_planes_raster equal the twin bit for bit "
         f"((pack, tile_w) in {STRESS_CASES}; {int(csr[2].max()) * pack} faces in the longest item) [{card}]")
+    for tile_h, tile_w in DENSE_STRESS_TILES:
+        args = stress_tile_list(tile_h, tile_w, HEAVY_K_CAP, device="cuda")
+        ref = rk.tile_raster_plain(*args)
+        out = rk.tile_raster(*args)
+        torch.cuda.synchronize()
+        if not (ref[:, 0] > 0).any() or not torch.equal(out, ref):
+            bad = out != ref
+            raise AssertionError(
+                f"tile_raster on the dense stress list (tile {tile_h}x{tile_w}): {int(bad.sum())} values "
+                f"differ in items {sorted(set(bad.nonzero()[:, 0].tolist()))}")
+    log(f"[stress list] tile_raster equals the twin bit for bit ((tile_h, tile_w) in {DENSE_STRESS_TILES}; "
+        f"{int(args[2].max())} faces in the longest item) [{card}]")
 
 
 def launch_counts() -> dict:
@@ -527,10 +575,13 @@ def main() -> int:
     csr_scene = build_scene(16, H, W, LINEMOD_K, num_iters=4, mesh_detail=5, active_tiles=32, device=dev)
     dense_scene = build_scene(2, H, W, LINEMOD_K, num_iters=4, mesh_detail=2, device=dev)
     train_scene, train_ecfg, batch = train_setup(dev)
+    heavy_scene = build_scene(16, H, W, LINEMOD_K, num_iters=4, mesh_detail=3,
+                              max_faces_per_tile=HEAVY_K_CAP, device=dev)
     results = {}
-    for name, sc, ecfg in (("csr_raster", csr_scene, csr_scene.ecfg),
-                           ("csr_planes_raster", train_scene, train_ecfg),
-                           ("tile_raster", dense_scene, dense_scene.ecfg)):
+    for name, shape, sc, ecfg in (("csr_raster", "", csr_scene, csr_scene.ecfg),
+                                  ("csr_planes_raster", "", train_scene, train_ecfg),
+                                  ("tile_raster", "", dense_scene, dense_scene.ecfg),
+                                  ("tile_raster", "heavy", heavy_scene, heavy_scene.ecfg)):
         m = sc.meshes
         launches = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(sc.pose0),
                                  k, ecfg.raster, corners=m.corners, corner_colors=m.corner_colors,
@@ -538,7 +589,11 @@ def main() -> int:
         got, args = launches[0]
         if got != name:
             raise AssertionError(f"scene meant for {name} plans {got}")
-        results[name] = check_kernel(name, args, card)
+        if sc is heavy_scene and int(args[2].max()) >= HEAVY_K_CAP:
+            raise AssertionError(f"heavy dense scene: a list reached the cap of {HEAVY_K_CAP} faces")
+        results[name, shape] = check_kernel(name, args, card, shape=shape)
+    heavy = results.pop(("tile_raster", "heavy"))
+    results = {name: r for (name, _), r in results.items()}
     # The same training render through csr_raster: the two CSR kernels agree.
     m = train_scene.meshes
     (got, args), = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid,
@@ -578,6 +633,9 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
+            # tile_raster's second shape (the heavy dense scene) rides on its entry.
+            **({f"heavy_{key}": heavy[key] for key in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+                                                       "bound_by")} if name == "tile_raster" else {}),
         }
         for name, r in results.items()
     ]

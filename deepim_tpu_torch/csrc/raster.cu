@@ -25,11 +25,13 @@
 //                       are therefore bit-identical to the record table,
 //                       and its output to csr_raster_kernel's on the same
 //                       scene.
-//   tile_raster_kernel  replaces _tile_kernel (dense path).  One block per
-//                       work item (one tile_h x tile_w tile), one thread per
-//                       pixel, looping over the tile's counts[w] face ids
-//                       from the dense (W, K) list in draw order, same
-//                       strict test.
+//   tile_raster_kernel  replaces _tile_kernel (dense path).  A work item is
+//                       one tile_h x tile_w tile (a multiple of 32 pixels, at
+//                       most 1,024) with its counts[w] global face ids from
+//                       row w of the dense (W, K) list, in draw order.  Per
+//                       pixel the largest clamped 1/z wins, ties go to the
+//                       first face of the list (the TPU kernel's strict
+//                       test), whatever the order of the ids.
 //
 // Face records are the 32-float rows built by rasterizer.build_face_records
 // (lane layout in pallas_raster.py:19-40): anchor u0 v0, edge planes
@@ -84,9 +86,42 @@
 //      already loaded, so an empty item costs a few stores instead of a
 //      block.
 //
-// tile_raster_kernel keeps its simple design (records staged in shared
-// memory, every pixel's thread evaluating every listed face); only its
-// shared-memory reads became 16-byte loads.
+// The dense kernel meets both ends of that regime: a cube face fills whole
+// tiles of up to 1,024 pixels from a list of a handful of faces, a
+// 1,280-face sphere leaves lists of 150 to 220 faces a few pixels wide,
+// some 10 of them over a 16-pixel block and up to 23 at its limb.  An item is a short chain of phases,
+// each waiting on latency or on the instruction rate, so each is spread over
+// the whole block of 512 threads, and covered pixels are many, so they get
+// no atomics:
+//
+//   1. Resident blocks walk the count-sorted work list in the same snake; an
+//      empty item costs the 16-byte stores of its rows.
+//   2. Faces on threads for the cull.  A pass takes up to 256 faces of the
+//      list; the block's threads split into as many parts as the pass leaves
+//      room for (2 for 256 faces, 64 for 8), and thread (face, part) tests
+//      the face against that part's share of the tile's 16-pixel blocks (up
+//      to 64 of them: 4 x 4 pixels where the tile's sides allow it) by the
+//      same exact corner-maximum rule.  Along a row of blocks the rule's dy
+//      products stay and the dx products step, so a test is one product and
+//      two sums an edge, with no branch and nothing carried from test to
+//      test.  So six tile-filling faces keep 384 threads busy, not six.
+//   3. The live (face, block) bits are transposed with 32-bit atomic ORs in
+//      shared memory into one list a block: a bit a face, in list order (two
+//      copies, so that a pass clears one while it fills the other).  Part 0
+//      leaves the face's planes and row in a stash.
+//   4. Pixels on threads for the z-test.  Eight neighbouring threads own the
+//      16 pixels of a cull block, two each, for the whole item.  A thread
+//      walks its block's list in list order with the TPU kernel's strict
+//      test and keeps the winner's 1/z and row in registers: the first of
+//      equal faces stays, whatever the order of the ids, and there is no
+//      z-buffer in memory.  When the list is done it loads its winners'
+//      colour planes and shades.
+//
+// (A first version of this kernel kept the CSR design: a queue of (face,
+// block) pairs over the block and the 64-bit atomic-max z-buffer with the
+// list position in the key.  With 6 to 18 covered pixels a face instead of
+// half a pixel, the 64-bit shared-memory atomics, compare-and-swap loops on
+// this card, took most of its time.)
 //
 // Arithmetic order: every plane is evaluated as ((a*dx) + (b*dy)) + c with
 // dx = px - u0, each operation rounded on its own with the __fmul_rn /
@@ -96,8 +131,8 @@
 // for bit.  (The alternative, -fmad=false, would change the whole file.)
 //
 // RASTER_ABLATE (a compile-time value, 0 in every build the package
-// makes): 1 switches the cull off (every face at all 128 pixels, the same
-// output), so that tools/raster_ablation.py can time what it buys.
+// makes): 1 switches the cull off (every face at every pixel of its tile,
+// the same output), so that tools/raster_ablation.py can time what it buys.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -116,7 +151,11 @@ constexpr int kCsrPixels = 128;     // 16x8 fine tile
 constexpr int kCsrThreads = 256;    // CSR block: one face per thread and pass
 constexpr int kCullBlocks = 8;      // 16-pixel cull blocks of a CSR tile
 constexpr int kStash = 20;          // floats a face keeps in its warp's stash (5 x 16 bytes: no bank conflicts)
-constexpr int kTileStage = 128;     // tile_raster: faces staged per chunk (16 KB)
+constexpr int kTileThreads = 512;   // dense block
+constexpr int kTilePass = 256;      // dense: faces culled per pass
+constexpr int kTileMaxPixels = 1024;
+constexpr int kTileMaxBlocks = kTileMaxPixels / 16;  // 16-pixel cull blocks of a dense tile
+static_assert(kTilePass % 32 == 0 && 2 * kTilePass <= kTileThreads, "a thread culls at most 32 of a tile's 64 blocks");
 
 // (a*dx) + (b*dy), each operation rounded on its own.
 __device__ __forceinline__ float plane2(float a, float b, float dx, float dy) {
@@ -132,6 +171,7 @@ struct Frag {
 };
 
 // ---- The CSR kernels: one thread per face, scattering into a z-buffer ----
+// (cull_block_shape, may_cover's rule and stash_face serve the dense kernel too)
 
 // Pixels x_lo..x_hi by y_lo..y_hi, bounds included.
 struct Rect {
@@ -158,21 +198,32 @@ __device__ __forceinline__ bool may_cover(const float* rc, const Rect& r) {
   return !(e0 < 0.0f) && !(e1 < 0.0f) && !(e2 < 0.0f);
 }
 
-// A tile of tile_w x (128 / tile_w) pixels as 8 cull blocks of bw x bh = 16
-// pixels (4 x 4 where the tile is at least 4 pixels each way), block k at
-// column k % (tile_w / bw), row k / (tile_w / bw) of the block grid.
+// The cull block of a tile_w x tile_h tile whose pixel count is a multiple
+// of 32: bw x bh = 16 pixels with bw dividing tile_w and bh dividing tile_h,
+// 4 x 4 where both sides allow it, else as tall as 16 / bw must be.
+struct BlockShape {
+  int bw, bh;
+};
+
+__host__ __device__ inline BlockShape cull_block_shape(int tile_w, int tile_h) {
+  int bh = 1;
+  while (bh < 4 && tile_h % (2 * bh) == 0) bh *= 2;
+  int bw = 16 / bh;
+  while (tile_w % bw) bw /= 2;
+  return {bw, 16 / bw};
+}
+
+// A CSR tile of tile_w x (128 / tile_w) pixels (tile_w a power of two) as 8
+// cull blocks, block k at column k % (tile_w / bw), row k / (tile_w / bw) of
+// the block grid.
 struct CullGrid {
   int bw, bh, col_mask, row_shift;
 };
 
 __device__ __forceinline__ CullGrid cull_grid(int tile_w) {
-  int bh = min(4, kCsrPixels / tile_w), bw = 16 / bh;
-  if (bw > tile_w) {
-    bw = tile_w;
-    bh = 16 / bw;
-  }
-  const int per_row = tile_w / bw;
-  return {bw, bh, per_row - 1, __ffs(per_row) - 1};
+  const BlockShape b = cull_block_shape(tile_w, kCsrPixels / tile_w);
+  const int per_row = tile_w / b.bw;
+  return {b.bw, b.bh, per_row - 1, __ffs(per_row) - 1};
 }
 
 // A z-buffer entry: the clamped 1/z as order-preserving bits above the
@@ -243,6 +294,16 @@ __device__ __forceinline__ void scatter_block(const float* rc, unsigned gf, int 
   }
 }
 
+// A face's planes rc[0..13] and an id (its row, for the CSR kernels' zkey)
+// into a stash slot of kStash floats.
+__device__ __forceinline__ void stash_face(float* slot, const float* rc, unsigned id) {
+  float4* s = reinterpret_cast<float4*>(slot);
+  s[0] = make_float4(rc[0], rc[1], rc[2], rc[3]);
+  s[1] = make_float4(rc[4], rc[5], rc[6], rc[7]);
+  s[2] = make_float4(rc[8], rc[9], rc[10], rc[11]);
+  s[3] = make_float4(rc[12], rc[13], __uint_as_float(id), 0.0f);
+}
+
 // One face against the 8 blocks of one tile.  Bit k of the result is set
 // when block k may hold a covered pixel.
 __device__ __forceinline__ unsigned live_blocks(const float* rc, int x0, int y0, const CullGrid& grid) {
@@ -269,13 +330,7 @@ __device__ __forceinline__ void scatter_warp(const float* rc, unsigned gf, unsig
                                              unsigned char* queue, unsigned long long* zbuf) {
   constexpr unsigned kAll = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  if (live) {
-    float4* mine = reinterpret_cast<float4*>(stash + lane * kStash);
-    mine[0] = make_float4(rc[0], rc[1], rc[2], rc[3]);
-    mine[1] = make_float4(rc[4], rc[5], rc[6], rc[7]);
-    mine[2] = make_float4(rc[8], rc[9], rc[10], rc[11]);
-    mine[3] = make_float4(rc[12], rc[13], __uint_as_float(gf), 0.0f);
-  }
+  if (live) stash_face(stash + lane * kStash, rc, gf);
   const int count = __popc(live);
   int end = count;  // inclusive prefix sum over the lanes
 #pragma unroll
@@ -462,72 +517,169 @@ __global__ void __launch_bounds__(kCsrThreads, 1024 / kCsrThreads) csr_planes_ra
                         pack, tile_w);
 }
 
-// ---- The dense kernel: one thread per pixel, every listed face ----
+// ---- The dense kernel: faces on threads for the cull, pixels on threads for the z-test ----
 
-// Evaluate one staged face record at (px, py) and keep it when it covers
-// the pixel and is strictly nearer (larger interpolated 1/z) than the
-// current winner.
-__device__ __forceinline__ void shade_face(const float* rc, float px, float py, Frag& best) {
-  const float4* r4 = reinterpret_cast<const float4*>(rc);
-  const float4 a = r4[0];  // u0 v0 A0 B0
-  const float4 b = r4[1];  // ar A1 B1 A2
-  const float4 c = r4[2];  // B2 Qa Qb q0
-  const float dx = __fsub_rn(px, a.x);
-  const float dy = __fsub_rn(py, a.y);
-  const float e0 = plane3(a.z, a.w, b.x, dx, dy);
-  const float e1 = plane2(b.y, b.z, dx, dy);
-  const float e2 = plane2(b.w, c.x, dx, dy);
-  if (fminf(e0, fminf(e1, e2)) >= 0.0f) {
-    const float4 d = r4[3];  // qmin qmax fid pad
-    const float qi = fminf(fmaxf(plane3(c.y, c.z, c.w, dx, dy), d.x), d.y);
-    if (qi > best.q) {
-      const float4 e = r4[4], f = r4[5], g = r4[6];  // lanes 16..27
-      best = {qi, d.z, plane3(e.x, e.y, e.z, dx, dy), plane3(e.w, f.x, f.y, dx, dy),
-              plane3(f.z, f.w, g.x, dx, dy)};
-    }
-  }
+// The coordinate, within [lo, lo + extent), at which a plane with this
+// coefficient along that axis is largest.
+__device__ __forceinline__ float far_side(int lo, int extent, float coef) {
+  return (float)(coef >= 0.0f ? lo + extent - 1 : lo);
 }
 
-__global__ void __launch_bounds__(1024) tile_raster_kernel(
+__global__ void __launch_bounds__(kTileThreads, 1024 / kTileThreads) tile_raster_kernel(
     const float* __restrict__ records,      // (N, 32)
-    const int* __restrict__ tf_global,      // (W, K) global face ids, -1 padded
+    const int* __restrict__ tf_global,      // (W, K) global face ids in draw order, -1 padded
     const int* __restrict__ counts,         // (W,)
     const int* __restrict__ tile_xy,        // (W, 2) pixel origin (x0, y0)
     float* __restrict__ out,                // (W, 4, P) [zq, rq, gq, bq]
-    int k_cap, int tile_w) {
-  __shared__ __align__(16) float srec[kTileStage * kRec];
-  const int w = blockIdx.x;
+    int w_items, int k_cap, int pixels, int tile_w, BlockShape shape) {
+  constexpr int kWords = kTilePass / 32;
+  constexpr int kOwn = kTileMaxPixels / kTileThreads;  // pixels a thread owns, all in one cull block
+  static_assert(kOwn * kTileThreads == kTileMaxPixels && 16 % kOwn == 0, "a cull block shared by whole threads");
+  __shared__ __align__(16) float stash[kTilePass * kStash];       // a pass's faces' planes and rows
+  // Per cull block, the pass's faces that may cover it: one bit a face, in
+  // list order.  Two copies: a pass fills one while the other is cleared.
+  __shared__ unsigned block_faces[2][kTileMaxBlocks][kWords];
   const int tid = threadIdx.x;
-  const int p = blockDim.x;
-  const float px = (float)(tile_xy[2 * w] + tid % tile_w);
-  const float py = (float)(tile_xy[2 * w + 1] + tid / tile_w);
-  const int cnt = counts[w];
-  const int* ids = tf_global + (size_t)w * k_cap;
-  Frag best = {kNeg, kBig, 0.0f, 0.0f, 0.0f};
-
-  for (int base = 0; base < cnt; base += kTileStage) {
-    const int n = min(kTileStage, cnt - base);
-    __syncthreads();
-    for (int i = tid; i < n * kRec; i += p) {
-      const int gf = ids[base + i / kRec];
-      srec[i] = records[(size_t)gf * kRec + (i % kRec)];
-    }
-    __syncthreads();
-    for (int f = 0; f < n; ++f) shade_face(srec + f * kRec, px, py, best);
+  const int bw = shape.bw, bh = shape.bh, log_bw = __ffs(bw) - 1;
+  const int n_blocks = pixels / 16, per_row = tile_w / bw;
+  // 16 / kOwn neighbouring threads own the pixels of one cull block, kOwn each.
+  const int own_k = tid / (16 / kOwn);
+  const bool owner = own_k < n_blocks;
+  int own_x[kOwn], own_y[kOwn];
+#pragma unroll
+  for (int j = 0; j < kOwn; ++j) {
+    const int i = kOwn * (tid % (16 / kOwn)) + j;
+    own_x[j] = (own_k % per_row) * bw + (i & (bw - 1));
+    own_y[j] = (own_k / per_row) * bh + (i >> log_bw);
   }
-  float* o = out + (size_t)w * 4 * p + tid;
-  o[0 * p] = best.q;
-  o[1 * p] = best.r;
-  o[2 * p] = best.g;
-  o[3 * p] = best.b;
+  for (int i = tid; i < 2 * kTileMaxBlocks * kWords; i += kTileThreads) (&block_faces[0][0][0])[i] = 0;
+  __syncthreads();
+  int fill = 0;  // the copy of block_faces that the next pass fills
+
+  int next_cnt = counts[blockIdx.x];
+  for (int round = 0, w; (w = snake_item(round)) < w_items; ++round) {
+    const int cnt = min(next_cnt, k_cap);
+    if (snake_item(round + 1) < w_items) next_cnt = counts[snake_item(round + 1)];  // lands during this item
+    float* o = out + (size_t)w * 4 * pixels;
+    if (cnt <= 0) {
+      float4* o4 = reinterpret_cast<float4*>(o);  // row 0 is pixels / 4 float4s of -1e30, the rest zeros
+      for (int i = tid; i < pixels; i += kTileThreads) {
+        const float v = i < pixels / 4 ? kNeg : 0.0f;
+        o4[i] = make_float4(v, v, v, v);
+      }
+      continue;
+    }
+    const int x0 = tile_xy[2 * w], y0 = tile_xy[2 * w + 1];
+    const int* ids = tf_global + (size_t)w * k_cap;
+    float best_q[kOwn];
+    unsigned best_row[kOwn];
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) best_q[j] = kNeg, best_row[j] = 0;
+
+    for (int base = 0; base < cnt; base += kTilePass, fill ^= 1) {
+      unsigned(*lists)[kWords] = block_faces[fill];
+      // The cull.  The pass's n faces take `slots` threads (a power of two)
+      // in each of `parts` parts of the block; thread (f, part) tests face f
+      // against blocks [part * per_part, (part + 1) * per_part) in row-major
+      // order, at most 32.  An edge plane at the pixel of a block where it is largest is
+      // ((a * dx) + (b * dy)) + c with dx from the block's column and dy from
+      // its row alone, so a step along a row costs one product an edge.
+      const int n = min(kTilePass, cnt - base);
+      const int log_slots = max(32 - __clz(n - 1), 32 - __clz(kTileThreads / n_blocks - 1));
+      const int f = tid & ((1 << log_slots) - 1), part = tid >> log_slots;
+      const int parts = kTileThreads >> log_slots;
+      const int per_part = (n_blocks + parts - 1) / parts;
+      const int k_lo = part * per_part, k_hi = min(k_lo + per_part, n_blocks);
+      for (int i = tid; i < kTileMaxBlocks * kWords; i += kTileThreads) (&block_faces[fill ^ 1][0][0])[i] = 0;
+      if (f < n && k_lo < k_hi) {
+        const unsigned row = (unsigned)max(ids[base + f], 0);
+        float rc[kPlanes];
+        load_planes<false>(records, row, rc);
+        if (part == 0) stash_face(stash + f * kStash, rc, row);
+        const float ea[3] = {rc[2], rc[5], rc[7]}, eb[3] = {rc[3], rc[6], rc[8]};
+        unsigned live = 0;  // bit k - k_lo: block k may hold a covered pixel
+        const int row_lo = k_lo / per_row, row_hi = (k_hi - 1) / per_row;
+        for (int brow = row_lo, k = k_lo; brow <= row_hi; ++brow) {
+          const int col_lo = k - brow * per_row, col_hi = min(per_row, k_hi - brow * per_row);
+          float xs[3], tb[3];
+#pragma unroll
+          for (int e = 0; e < 3; ++e) {
+            xs[e] = far_side(x0 + col_lo * bw, bw, ea[e]);
+            tb[e] = __fmul_rn(eb[e], __fsub_rn(far_side(y0 + brow * bh, bh, eb[e]), rc[1]));
+          }
+#pragma unroll 4
+          for (int col = col_lo; col < col_hi; ++col, ++k) {
+            float edge[3];
+#pragma unroll
+            for (int e = 0; e < 3; ++e) {
+              edge[e] = __fadd_rn(__fmul_rn(ea[e], __fsub_rn(xs[e], rc[0])), tb[e]);
+              xs[e] = __fadd_rn(xs[e], (float)bw);  // whole numbers: exact
+            }
+            edge[0] = __fadd_rn(edge[0], rc[4]);
+            const bool outside = edge[0] < 0.0f || edge[1] < 0.0f || edge[2] < 0.0f;
+            live |= (kAblate == 1 || !outside ? 1u : 0u) << (k - k_lo);
+          }
+        }
+        for (; live; live &= live - 1) atomicOr(&lists[k_lo + __ffs(live) - 1][f >> 5], 1u << (f & 31));
+      }
+      __syncthreads();
+      // The z-test.  A thread walks the live faces of its block in list order
+      // and tests its pixels with the strict test: the first of equal faces
+      // stays.
+      if (owner) {
+        const int n_words = (n + 31) >> 5;
+        for (int word = 0; word < n_words; ++word) {
+          for (unsigned m = lists[own_k][word]; m; m &= m - 1) {
+            const float4* face = reinterpret_cast<const float4*>(stash + (32 * word + __ffs(m) - 1) * kStash);
+            const float4 a = face[0], b = face[1], c = face[2], d = face[3];
+#pragma unroll
+            for (int j = 0; j < kOwn; ++j) {
+              const float dx = __fsub_rn((float)(x0 + own_x[j]), a.x);
+              const float dy = __fsub_rn((float)(y0 + own_y[j]), a.y);
+              const float e0 = plane3(a.z, a.w, b.x, dx, dy);
+              const float e1 = plane2(b.y, b.z, dx, dy);
+              const float e2 = plane2(b.w, c.x, dx, dy);
+              const float qi = fminf(fmaxf(plane3(c.y, c.z, c.w, dx, dy), d.x), d.y);
+              if (fminf(e0, fminf(e1, e2)) >= 0.0f && qi > best_q[j]) {
+                best_q[j] = qi;
+                best_row[j] = __float_as_uint(d.z);
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();  // the stash is free again; this pass's lists may be cleared
+    }
+    if (owner) {
+#pragma unroll
+      for (int j = 0; j < kOwn; ++j) {
+        // The pixel's winner, shaded from its colour planes (read again: one face a pixel).
+        float r = 0.0f, g = 0.0f, b = 0.0f;
+        if (best_q[j] > kNeg) {
+          const float4* row = reinterpret_cast<const float4*>(records + (size_t)best_row[j] * kRec);
+          const float4 a = __ldg(row), c4 = __ldg(row + 4), c5 = __ldg(row + 5), c6 = __ldg(row + 6);
+          const float dx = __fsub_rn((float)(x0 + own_x[j]), a.x);
+          const float dy = __fsub_rn((float)(y0 + own_y[j]), a.y);
+          r = plane3(c4.x, c4.y, c4.z, dx, dy);
+          g = plane3(c4.w, c5.x, c5.y, dx, dy);
+          b = plane3(c5.z, c5.w, c6.x, dx, dy);
+        }
+        const int p = own_y[j] * tile_w + own_x[j];
+        o[p] = best_q[j];
+        o[pixels + p] = r;
+        o[2 * pixels + p] = g;
+        o[3 * pixels + p] = b;
+      }
+    }
+  }
 }
 
-// CSR blocks that the card holds at once: the CSR kernels' grid.
-int resident_blocks(const void* kernel) {
+// Blocks of `threads` threads that the card holds at once: a kernel's grid.
+int resident_blocks(const void* kernel, int threads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kCsrThreads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   return max(1, sms * per_sm);
 }
 
@@ -538,7 +690,7 @@ extern "C" int csr_raster_launch(const void* records, const void* sorted_unit,
                                  const void* tile_xy, const void* unit_base, void* out,
                                  int w_items, int pack, int tile_w, void* stream) {
   if (w_items > 0) {
-    static const int resident = resident_blocks((const void*)csr_raster_kernel);
+    static const int resident = resident_blocks((const void*)csr_raster_kernel, kCsrThreads);
     csr_raster_kernel<<<min(w_items, resident), kCsrThreads, 0, (cudaStream_t)stream>>>(
         (const float*)records, (const int*)sorted_unit, (const int*)seg_start,
         (const int*)seg_count, (const int*)tile_xy, (const int*)unit_base, (float*)out,
@@ -552,7 +704,7 @@ extern "C" int csr_planes_raster_launch(const void* raw, const void* sorted_unit
                                         const void* tile_xy, const void* unit_base, void* out,
                                         int w_items, int pack, int tile_w, void* stream) {
   if (w_items > 0) {
-    static const int resident = resident_blocks((const void*)csr_planes_raster_kernel);
+    static const int resident = resident_blocks((const void*)csr_planes_raster_kernel, kCsrThreads);
     csr_planes_raster_kernel<<<min(w_items, resident), kCsrThreads, 0, (cudaStream_t)stream>>>(
         (const float*)raw, (const int*)sorted_unit, (const int*)seg_start,
         (const int*)seg_count, (const int*)tile_xy, (const int*)unit_base, (float*)out,
@@ -565,10 +717,16 @@ extern "C" int tile_raster_launch(const void* records, const void* tf_global,
                                   const void* counts, const void* tile_xy, void* out,
                                   int w_items, int k_cap, int tile_pixels, int tile_w,
                                   void* stream) {
+  if (tile_w <= 0 || tile_pixels <= 0 || tile_pixels > kTileMaxPixels || tile_pixels % 32 ||
+      tile_pixels % tile_w) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (w_items > 0) {
-    tile_raster_kernel<<<w_items, tile_pixels, 0, (cudaStream_t)stream>>>(
+    static const int resident = resident_blocks((const void*)tile_raster_kernel, kTileThreads);
+    tile_raster_kernel<<<min(w_items, resident), kTileThreads, 0, (cudaStream_t)stream>>>(
         (const float*)records, (const int*)tf_global, (const int*)counts,
-        (const int*)tile_xy, (float*)out, k_cap, tile_w);
+        (const int*)tile_xy, (float*)out, w_items, k_cap, tile_pixels, tile_w,
+        cull_block_shape(tile_w, tile_pixels / tile_w));
   }
   return (int)cudaGetLastError();
 }

@@ -16,12 +16,14 @@ csrc/raster.cu (the source explains their design and what bounds them):
   the same order, so its output equals csr_raster's bit for bit.
 * tile_raster replaces pallas_raster._tile_kernel (dense path, launched by
   pallas_visibility_shade): one tile_h x tile_w tile per work item, looping
-  over the tile's counts[w] face ids.  Output (W, 4, P) rows
+  over the tile's counts[w] face ids in list order.  Output (W, 4, P) rows
   [zq, r*q, g*q, b*q].
 
-Both resolve visibility with the TPU kernels' rule: the largest clamped
-interpolated 1/z wins, exact ties go to the smallest global face id (the
-earliest-drawn face, as GL does).
+All resolve visibility with the TPU kernels' rule: the largest clamped
+interpolated 1/z wins, exact ties go to the first face of the list (the
+earliest-drawn face, as GL does): the smallest global face id in a CSR
+segment, whose ids ascend, and the first position in a dense list, whatever
+the order of its ids.
 
 What bounds the CSR kernels on an H100 is issue slots and latency,
 not bytes or operations: a few hundred faces per non-empty tile, each
@@ -31,7 +33,11 @@ thread, which culls its face against the tile's 8 blocks of 16 pixels
 plain version: an edge plane that is negative where it is largest over a
 rectangle is negative on all of it), evaluates only the pixels of the
 blocks that are left, and enters the covered ones into a shared-memory
-z-buffer with an atomic max on (1/z, smallest face row first).
+z-buffer with an atomic max on (1/z, smallest face row first).  The dense
+kernel culls in the same way over tiles of up to 1,024 pixels (up to 64
+blocks), with the cull spread over the whole thread block; its faces cover
+many pixels, so it then gives every pixel a thread that walks its block's
+surviving faces in list order and keeps the winner in registers.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain twin only for CPU tensors; there is no fallback from one to the
@@ -62,8 +68,7 @@ RAW_WIDTH = 32  # raw corner-pack row (csr_planes_raster); 20 lanes used
 NEG = -1e30
 BIG = 1e30
 CSR_TILE_PIXELS = 128
-# Faces per twin chunk (tile_raster's kernel stages TILE_STAGE faces too;
-# the CSR kernels stage nothing).
+# Faces per twin chunk.
 CSR_STAGE = 192
 TILE_STAGE = 128
 # Elements per (work items, chunk, pixels) temporary of the twins.
@@ -225,29 +230,36 @@ def _coverage(rec, px, py):
     return inside, qi
 
 
-def cull_rectangles(tile_w: int):
-    """The rectangles the CSR kernels cull a face against, as
-    (x_lo, x_hi, y_lo, y_hi) pixel offsets from the origin of a 128-pixel
-    tile whose rows are tile_w wide, bounds included: the tile's 8 blocks
-    of bw x bh = 16 pixels (4 x 4 where the tile is at least 4 pixels each
-    way) in row-major order of the block grid."""
-    if tile_w <= 0 or CSR_TILE_PIXELS % tile_w:
-        raise ValueError(f"tile_w {tile_w} must divide {CSR_TILE_PIXELS}")
-    tile_h = CSR_TILE_PIXELS // tile_w
-    bh = min(4, tile_h)
+def cull_rectangles(tile_w: int, *, tile_h: int | None = None):
+    """The rectangles the kernels cull a face against, as
+    (x_lo, x_hi, y_lo, y_hi) pixel offsets from the origin of a tile_h x
+    tile_w tile, bounds included: the tile's blocks of bw x bh = 16 pixels
+    (bw divides tile_w and bh tile_h; 4 x 4 where both sides allow it) in
+    row-major order of the block grid.  tile_h defaults to the CSR kernels'
+    128 // tile_w (8 blocks); a dense tile holds a multiple of 32 pixels."""
+    if tile_h is None:
+        if tile_w <= 0 or CSR_TILE_PIXELS % tile_w:
+            raise ValueError(f"tile_w {tile_w} must divide {CSR_TILE_PIXELS}")
+        tile_h = CSR_TILE_PIXELS // tile_w
+    if tile_w <= 0 or tile_h <= 0 or (tile_h * tile_w) % 32:
+        raise ValueError(f"tile {tile_h} x {tile_w} must hold a multiple of 32 pixels")
+    bh = 1
+    while bh < 4 and tile_h % (2 * bh) == 0:
+        bh *= 2
     bw = 16 // bh
-    if bw > tile_w:
-        bw, bh = tile_w, 16 // tile_w
+    while tile_w % bw:
+        bw //= 2
+    bh = 16 // bw
     per_row = tile_w // bw
     rects = []
-    for k in range(8):
+    for k in range(tile_h * tile_w // 16):
         bx, by = (k % per_row) * bw, (k // per_row) * bh
         rects.append((bx, bx + bw - 1, by, by + bh - 1))
     return rects
 
 
 def edge_maxima_plain(records, x_lo, x_hi, y_lo, y_hi):
-    """Plain version of the CSR kernels' cull: each face's three
+    """Plain version of the kernels' cull: each face's three
     edge planes at the pixel of the rectangle [x_lo, x_hi] x [y_lo, y_hi]
     where that plane is largest (the signs of its two coefficients pick
     the corner), with _coverage's operations in its order.
@@ -467,6 +479,8 @@ def tile_raster(records, tf_global, counts, tile_xy, tile_h: int, tile_w: int):
         raise ValueError("tile_raster: bad record or tile_xy shape")
     if records.shape[0] * REC_WIDTH >= 2**31:
         raise ValueError("tile_raster: record table exceeds 32-bit indexing")
+    if records.data_ptr() % 16:
+        raise ValueError("tile_raster: record table must be 16-byte aligned")
     out = torch.empty((w_items, 4, p), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):

@@ -1,6 +1,9 @@
-"""A hand-built CSR work list that renders never produce, for holding
-csr_raster and csr_planes_raster to their plain twins where the kernels'
-face loop, culling and z-buffer have their edges.
+"""Hand-built work lists that renders never produce, for holding the
+raster kernels to their plain twins where their face loops, culling and
+z-buffers have their edges: stress_work_list for csr_raster and
+csr_planes_raster, stress_tile_list (at the end) for tile_raster.
+
+The CSR list.
 
 Two samples of `n_faces` triangles each around one tile: mostly a few
 pixels across, some covering the whole tile, a tenth invalid, some
@@ -84,3 +87,59 @@ def stress_work_list(pack: int, tile_w: int, n_faces: int = 1328, seed: int = 0,
     csr = (i32(np.concatenate(flat)), i32(seg_start), i32([len(x[1]) for x in items]),
            i32([x[2] for x in items]), i32([x[0] * u for x in items]))
     return records.to(device), raw.to(device), tuple(t.to(device) for t in csr) + (pack, tile_w)
+
+
+def stress_tile_list(tile_h: int, tile_w: int, k_cap: int, seed: int = 0, device="cpu"):
+    """-> tile_raster's arguments (records, tf_global, counts, tile_xy,
+    tile_h, tile_w) for a dense work list of (W, k_cap) rows over
+    n = k_cap rounded up to a multiple of 4 faces around one tile.
+
+    Record row 0 is a guard that no list holds: it covers every tile,
+    nearer than every face, so a kernel that reads a list past its count
+    (where the rows hold -1, which the twin clamps to row 0) shows it on
+    every pixel.  Rows 1..n are _triangles' faces (small, tile-filling,
+    degenerate and invalid ones); the last quarter are copies of the first
+    quarter in place and 1/z but not in colour, so which of two exactly
+    tied faces won shows in the output.  The lists: every face in ascending,
+    in descending (the copies come first and must win) and in shuffled
+    order, a shuffled list on another tile, lists of 0 and 1 faces, of 128
+    and 129 (a full chunk of the twin and one face more) and of 256 and 257
+    (a full pass of the kernel and one face more; all four as far as k_cap
+    allows), the copies before their originals, and an empty item last."""
+    if k_cap < 8:
+        raise ValueError("k_cap must be at least 8")
+    rng = np.random.RandomState(seed)
+    n = -(-k_cap // 4) * 4
+    x0, y0 = 3 * tile_w, 2 * tile_h
+    fu, fv, fq, fcol, valid = _triangles(rng, n, x0, y0, tile_w, tile_h)
+    q = n // 4
+    fcol[n - q:] = rng.uniform(0, 255, (q, 3, 3)).astype(np.float32)
+    far = 16.0 * (tile_w + tile_h)
+    guard = (np.array([[x0 - far, x0 + 2 * far, x0 - far]], np.float32),
+             np.array([[y0 - far, y0 - far, y0 + 2 * far]], np.float32),
+             np.full((1, 3), 3.0, np.float32), np.full((1, 3, 3), 255.0, np.float32), np.array([True]))
+    fu, fv, fq, fcol, valid = (torch.from_numpy(np.concatenate([g, x]))
+                               for g, x in zip(guard, (fu, fv, fq, fcol, valid)))
+    records = build_face_records(fu, fv, fq, fcol, valid)
+
+    every = 1 + np.arange(n)
+    lists = [  # (face rows in draw order, tile origin)
+        (every[:k_cap], (x0, y0)),
+        (every[:0], (0, 0)),
+        (every[::-1][:k_cap], (x0, y0)),
+        (rng.permutation(every)[:k_cap], (x0, y0)),
+        (rng.permutation(every)[:k_cap], (x0 + tile_w, y0)),
+        (every[:1], (x0, y0)),
+        (every[:128], (x0, y0)),
+        (rng.permutation(every)[:129], (x0, y0 + tile_h)),
+        (every[::-1][:256], (x0, y0)),
+        (rng.permutation(every)[:257], (x0, y0)),
+        (np.concatenate([every[n - q:], every[:q]])[:k_cap], (x0, y0)),
+        (every[:0], (x0, y0)),
+    ]
+    tf_global = np.full((len(lists), k_cap), -1, np.int32)
+    for row, (ids, _) in zip(tf_global, lists):
+        row[:len(ids)] = ids
+    args = (records, torch.from_numpy(tf_global), torch.tensor([len(x[0]) for x in lists], dtype=torch.int32),
+            torch.tensor([x[1] for x in lists], dtype=torch.int32))
+    return tuple(t.to(device) for t in args) + (tile_h, tile_w)

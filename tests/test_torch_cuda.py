@@ -13,12 +13,12 @@ import dataclasses
 from deepim_tpu_torch.config import TrainConfig, TrainIterConfig
 from deepim_tpu_torch.engine import TrainState, make_optimizer, make_train_step, warmup_multifactor_schedule
 from deepim_tpu_torch.engine.refine import MeshBuffers, Observation, refine
-from deepim_tpu_torch.engine.scene import build_scene, train_batch
+from deepim_tpu_torch.engine.scene import LINEMOD_K, build_scene, train_batch
 from deepim_tpu_torch.models import FlowNetDeepIM
 from deepim_tpu_torch.ops.masks import box_fill
 from deepim_tpu_torch.render import raster_kernels as rk
 from deepim_tpu_torch.render.rasterizer import KERNELS, RasterConfig, kernel_inputs, rasterize
-from deepim_tpu_torch.render.stress import stress_work_list
+from deepim_tpu_torch.render.stress import stress_tile_list, stress_work_list
 
 torch.set_num_threads(2)
 
@@ -206,3 +206,42 @@ def test_csr_kernels_equal_twins_on_stress_list(pack, tile_w):
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
         assert torch.equal(out, ref), kernel.__name__
+
+
+@pytest.mark.parametrize("tile_h,tile_w", [(8, 128), (16, 16), (8, 16), (8, 4), (1, 32), (16, 6)])
+def test_tile_kernel_equals_twin_on_stress_list(tile_h, tile_w):
+    """tile_raster on the hand-built dense stress list (lists of 512 faces:
+    two passes of a block; descending and shuffled ids with exact 1/z ties
+    that the first in the list must win; lists of 0, 1, 128, 129, 256 and
+    257 faces; tile-filling, degenerate and invalid faces; -1 padding behind a guard
+    face), with 4x4 cull blocks and the general shapes (16x1 for the 1x32
+    tile, 2x8 for 16x6): bit-equal to the twin."""
+    dev = _need_card()
+    args = stress_tile_list(tile_h, tile_w, 512, device=dev)
+    ref = rk.tile_raster_plain(*args)
+    hit = ref[:, 0] > 0
+    assert hit.any() and float(ref[:, 0].max()) < 3.0  # the guard face is in no list
+    assert not torch.equal(ref[0, 1:], ref[2, 1:])      # ascending and descending lists: other tie winners
+    before = rk.tile_raster.launches
+    out = rk.tile_raster(*args)
+    torch.cuda.synchronize()
+    assert rk.tile_raster.launches == before + 1
+    assert torch.equal(out, ref)
+
+
+def test_tile_kernel_equals_twin_on_heavy_scene():
+    """tile_raster at the dense path's heavy shape (480x640, batch 16,
+    1,280-face icospheres, lists of up to 512 faces): no list reaches the
+    cap, and the kernel equals the twin bit for bit."""
+    dev = _need_card()
+    sc = build_scene(16, 480, 640, LINEMOD_K, num_iters=4, mesh_detail=3, max_faces_per_tile=512, device=dev)
+    m = sc.meshes
+    (name, args), = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(sc.pose0),
+                                  torch.from_numpy(LINEMOD_K), sc.ecfg.raster, corners=m.corners,
+                                  corner_colors=m.corner_colors, device=dev)
+    assert name == "tile_raster" and 128 < int(args[2].max()) < 512
+    out = rk.tile_raster(*args)
+    ref = rk.tile_raster_plain(*args)
+    torch.cuda.synchronize()
+    assert (out[:, 0] > 0).any()
+    assert torch.equal(out, ref)

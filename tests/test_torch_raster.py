@@ -76,6 +76,7 @@ def _render_both(arrs, jcfg, tcfg):
 
 _MESHES = {
     "cube": lambda: j_cube(0.08),
+    "ico2": lambda: j_ico(0.05, 2),
     "ico3": lambda: j_ico(0.05, 3),
     "ico4": lambda: j_ico(0.05, 4),
 }
@@ -387,32 +388,34 @@ def _item_faces(sorted_unit, seg_start, seg_count, tile_xy, unit_base, pack, til
 
 
 def _rect_pixels(rect, tile_w):
-    """Indices (into a tile's 128 row-major pixels) of a cull rectangle."""
+    """Indices (into a tile's row-major pixels) of a cull rectangle."""
     x_lo, x_hi, y_lo, y_hi = rect
     return torch.tensor([y * tile_w + x for y in range(y_lo, y_hi + 1) for x in range(x_lo, x_hi + 1)])
 
 
-def _culls(records, gf, tile_xy, tile_w):
-    """For each of the tile's 8 blocks: (pixel indices, rejected (W, C))."""
+def _culls(records, gf, tile_xy, tile_w, tile_h=None):
+    """For each of the tile's 16-pixel blocks (8 of a CSR tile, tile_h *
+    tile_w / 16 of a dense one): (pixel indices, rejected (W, C))."""
     rec = records[gf]
     x0, y0 = tile_xy[:, 0:1], tile_xy[:, 1:2]
-    for rect in tk.cull_rectangles(tile_w):
+    for rect in tk.cull_rectangles(tile_w, tile_h=tile_h):
         x_lo, x_hi, y_lo, y_hi = rect
         maxima = tk.edge_maxima_plain(rec, x0 + x_lo, x0 + x_hi, y0 + y_lo, y0 + y_hi)
         yield _rect_pixels(rect, tile_w), (maxima < 0).any(-1)
 
 
-def _assert_cull_is_exact(records, gf, live, tile_xy, tile_w):
+def _assert_cull_is_exact(records, gf, live, tile_xy, tile_w, tile_h=None):
     """rejected => no pixel of the rectangle passes the inside test.
     Returns the share of live (face, 16-pixel block) pairs the cull rejects."""
-    px, py = tk._pixel_coords(tile_xy, tk.CSR_TILE_PIXELS, tile_w)
+    pixels = tk.CSR_TILE_PIXELS if tile_h is None else tile_h * tile_w
+    px, py = tk._pixel_coords(tile_xy, pixels, tile_w)
     inside, _ = tk._coverage(records[gf], px, py)
     n_rej = 0
-    for pix, rejected in _culls(records, gf, tile_xy, tile_w):
+    for pix, rejected in _culls(records, gf, tile_xy, tile_w, tile_h):
         covered = inside[:, :, pix].any(-1)
         assert not (covered & rejected & live).any(), f"tile_w {tile_w}: a culled face covers a pixel"
         n_rej += int((rejected & live).sum())
-    return n_rej / (8 * int(live.sum()))
+    return n_rej / (pixels // 16 * int(live.sum()))
 
 
 @pytest.mark.parametrize("tile_w", CULL_TILE_WS + [1, 2, 64])
@@ -449,11 +452,10 @@ def test_cull_rule_on_base_scene(tile_w):
     assert _assert_cull_is_exact(records, gf, live, csr[3], tile_w) > 0.5
 
 
-@pytest.mark.parametrize("tile_w", CULL_TILE_WS)
-def test_cull_rule_on_random_records(rng, tile_w):
-    """Random records with zero (and -0.0), tiny, ordinary, huge and
-    overflowing coefficients, negative-area flags and off-grid anchors."""
-    n = 3000
+def _random_records(rng, n):
+    """(n, 32) numpy records: anchors on and off the image, edge planes
+    with ordinary, zero, tiny, huge and overflowing coefficients, a fifth
+    of the faces flagged invalid (ar = -1e30)."""
     pool = np.array([0.0, -0.0, 1e-30, -1e-30, 1e15, -1e15, 1e36, -1e36], np.float32)
 
     def coeffs(shape):
@@ -467,6 +469,15 @@ def test_cull_rule_on_random_records(rng, tile_w):
     rec[:, [2, 3, 5, 6, 7, 8]] = coeffs((n, 6))
     rec[:, 4] = np.where(rng.rand(n) < 0.2, -1e30, rng.uniform(-50, 400, n))
     rec[:, 13] = 1.0
+    return rec
+
+
+@pytest.mark.parametrize("tile_w", CULL_TILE_WS)
+def test_cull_rule_on_random_records(rng, tile_w):
+    """Random records with zero (and -0.0), tiny, ordinary, huge and
+    overflowing coefficients, negative-area flags and off-grid anchors."""
+    n = 3000
+    rec = _random_records(rng, n)
     records = torch.from_numpy(rec)
     tile_h = 128 // tile_w
     origins = [(tx * tile_w, ty * tile_h) for tx in range(0, 128 // tile_w, max(1, 32 // tile_w))
@@ -523,3 +534,130 @@ def test_stress_list_twins(pack, tile_w):
     assert (fid < n // 4).any() and not (fid >= n - n // 4).any()
     gf, live = _item_faces(*csr)
     assert int(gf[live].max()) < 2 * n and int(live[0].sum()) == n
+
+
+# --- The dense kernel's cull and its stress list ---
+
+DENSE_TILES = [(8, 128), (16, 16), (8, 16), (8, 4), (1, 32)]
+
+
+def _dense_inputs(mesh_name, tile_h, tile_w):
+    """tile_raster's arguments for a BASE scene binned over tile_h x tile_w
+    tiles (CPU), every tile kept."""
+    arrs = _scene(_MESHES[mesh_name](), b=2, seed=1)
+    cfg = _cfgs(binning="dense", tile_h=tile_h, tile_w=tile_w)[1]
+    (name, args), = tr.kernel_inputs(*(torch.from_numpy(x) for x in arrs), torch.from_numpy(K_MAT), cfg,
+                                     device="cpu")
+    assert name == "tile_raster" and args[4:] == (tile_h, tile_w)
+    return args
+
+
+def _list_faces(tf_global, counts):
+    """A dense work list's (W, K) face rows and their live mask."""
+    live = torch.arange(tf_global.shape[1])[None, :] < counts[:, None]
+    return tf_global.long().clamp(min=0), live
+
+
+@pytest.mark.parametrize("tile_h,tile_w", DENSE_TILES + [(16, 6), (32, 3), (8, 12)])
+def test_dense_cull_rectangles_tile_the_tile(tile_h, tile_w):
+    """tile_h * tile_w / 16 blocks of 16 pixels that cover each pixel of a
+    dense tile once, 4 x 4 where both sides are multiples of 4."""
+    rects = tk.cull_rectangles(tile_w, tile_h=tile_h)
+    blocks = [_rect_pixels(r, tile_w).tolist() for r in rects]
+    assert len(blocks) == tile_h * tile_w // 16 and all(len(b) == 16 for b in blocks)
+    assert sorted(sum(blocks, [])) == list(range(tile_h * tile_w))
+    if tile_h % 4 == 0 and tile_w % 4 == 0:
+        assert all(r[1] - r[0] == 3 and r[3] - r[2] == 3 for r in rects)
+    if tile_h * tile_w == 128 and 128 % tile_w == 0:
+        assert rects == tk.cull_rectangles(tile_w)
+    for bad_w, bad_h in ((tile_w, 0), (3, 5)):  # no rows; 15 pixels
+        with pytest.raises(ValueError):
+            tk.cull_rectangles(bad_w, tile_h=bad_h)
+    with pytest.raises(TypeError):  # the height goes by name: every other API here is (h, w)
+        tk.cull_rectangles(tile_w, tile_h)
+
+
+@pytest.mark.parametrize("tile_h,tile_w", DENSE_TILES)
+@pytest.mark.parametrize("mesh_name", ["ico2", "ico3"])
+def test_dense_cull_rule_on_scene(mesh_name, tile_h, tile_w):
+    """On a scene's own dense work list: a face the cull rejects for a
+    16-pixel block of the tile covers none of that block's pixels, and some
+    (face, block) pairs are rejected."""
+    records, tf_global, counts, tile_xy, _, _ = _dense_inputs(mesh_name, tile_h, tile_w)
+    keep = counts > 0  # the work list is sorted: the tiles with faces come first
+    assert 0 < int(counts.max()) < tf_global.shape[1]
+    gf, live = _list_faces(tf_global[keep], counts[keep])
+    gf, live = gf[:, :int(counts.max())], live[:, :int(counts.max())]
+    share = _assert_cull_is_exact(records, gf, live, tile_xy[keep], tile_w, tile_h)
+    assert share > (0.5 if tile_h * tile_w >= 128 else 0.0)
+
+
+@pytest.mark.parametrize("tile_h,tile_w", DENSE_TILES)
+def test_dense_cull_rule_on_random_records(rng, tile_h, tile_w):
+    """The random records of test_cull_rule_on_random_records against the
+    blocks of dense tiles."""
+    n = 1500
+    records = torch.from_numpy(_random_records(rng, n))
+    origins = [(tx * tile_w, ty * tile_h) for tx in range(0, 128 // tile_w, max(1, 32 // tile_w))
+               for ty in range(0, 96 // tile_h, max(1, 24 // tile_h))][:4]
+    tile_xy = torch.tensor(origins, dtype=torch.int32)
+    gf = torch.arange(n)[None, :].expand(len(origins), n)
+    share = _assert_cull_is_exact(records, gf, torch.ones_like(gf, dtype=torch.bool), tile_xy, tile_w, tile_h)
+    assert 0.2 < share < 1.0
+
+
+@pytest.mark.parametrize("tile_h,tile_w", DENSE_TILES)
+def test_dense_culled_lists_give_the_full_lists_output(tile_h, tile_w):
+    """tile_raster_plain fed, for each 16-pixel block of the tile, only the
+    faces the cull keeps for that block (in list order) equals
+    tile_raster_plain on the full lists on that block's pixels, bit for
+    bit."""
+    records, tf_global, counts, tile_xy, _, _ = _dense_inputs("ico3", tile_h, tile_w)
+    keep = counts > 0
+    tf_global, counts, tile_xy = tf_global[keep], counts[keep], tile_xy[keep]
+    full = tk.tile_raster_plain(records, tf_global, counts, tile_xy, tile_h, tile_w)
+    assert (full[:, 0] > 0).any()
+    gf, live = _list_faces(tf_global, counts)
+    for pix, rejected in _culls(records, gf, tile_xy, tile_w, tile_h):
+        kept = live & ~rejected
+        order = torch.sort((~kept).int(), dim=1, stable=True).indices  # kept faces first, in list order
+        ids = torch.where(torch.gather(kept, 1, order), torch.gather(tf_global, 1, order), -1)
+        out = tk.tile_raster_plain(records, ids.int(), kept.sum(1).int(), tile_xy, tile_h, tile_w)
+        assert torch.equal(out[:, :, pix], full[:, :, pix])
+
+
+@pytest.mark.parametrize("tile_h,tile_w", [(8, 128), (16, 16)])
+def test_stress_tile_list_matches_jax(tile_h, tile_w):
+    """The dense stress list (stress.py) through tile_raster's twin and
+    through the JAX package's interpreted dense kernel, fed the gathered
+    (W, K, 32) records: hits exact, q to 1e-5, rgb to 5e-3
+    (test_csr_raster.py:58-70).  The list is what it says: the guard row is
+    never drawn, the descending list gives its ties to other faces than the
+    ascending one, empty items keep (-1e30, 0, 0, 0)."""
+    from deepim_tpu.render.pallas_raster import pallas_visibility_shade
+    from deepim_tpu_torch.render.stress import stress_tile_list
+
+    k_cap = 160
+    records, tf_global, counts, tile_xy, _, _ = args = stress_tile_list(tile_h, tile_w, k_cap)
+    assert sorted(set(counts.tolist())) == [0, 1, k_cap // 2, 128, 129, k_cap]
+    assert (tf_global[torch.arange(k_cap)[None, :] >= counts[:, None]] == -1).all()
+    tk.reset_launch_counts()
+    out = tk.tile_raster(*args)
+    assert tk.tile_raster.launches == 0
+    empty = counts == 0
+    assert (out[empty][:, 0] == tk.NEG).all() and (out[empty][:, 1:] == 0).all()
+    hit = out[:, 0] > 0
+    assert hit[counts >= 128].any(1).all() and float(out[:, 0].max()) < 3.0
+    assert torch.equal(out[0, 0], out[2, 0]) and not torch.equal(out[0, 1:], out[2, 1:])
+
+    gathered = records[tf_global.long().clamp(min=0)].numpy()  # (W, K, 32)
+    j_q, j_rgbq = pallas_visibility_shade(jnp.asarray(gathered), jnp.asarray(counts.numpy()),
+                                          jnp.asarray(tile_xy.numpy()), tile_h, tile_w, interpret=True)
+    j_q, j_rgbq = np.asarray(j_q)[~empty.numpy()], np.asarray(j_rgbq)[~empty.numpy()]
+    t = out[~empty].numpy()
+    t_hit = t[:, 0] > 0
+    np.testing.assert_array_equal(t_hit, j_q > 0, err_msg="hit mask")
+    np.testing.assert_allclose(t[:, 0][t_hit], j_q[t_hit], atol=1e-5, rtol=0, err_msg="q")
+    t_rgb = (t[:, 1:4] / np.where(t_hit, t[:, 0], 1.0)[:, None]).transpose(0, 2, 1)
+    j_rgb = j_rgbq / np.where(t_hit, j_q, 1.0)[..., None]
+    np.testing.assert_allclose(t_rgb[t_hit], j_rgb[t_hit], atol=5e-3, rtol=0, err_msg="rgb")
