@@ -41,7 +41,23 @@ Phases (each raises on failure; the script then exits non-zero):
      planes64;
   7. small-input reference checks: the card's renders, refinement and
      training step equal the CPU path (the one the tests hold to the JAX
-     package).
+     package), and so does the eval driver (pred_eval) on a 64x64 devkit;
+  8. the eval driver through its front door: tools/synth_data.py writes a
+     480x640 LINEMOD-layout devkit (LINEMOD intrinsics; classes "cube", a
+     0.08 m cube, and "sphere", a 20,480-face icosphere of radius 0.05 m;
+     256 test pairs each, one rendered initial pose per pair, PNG rows Sub
+     filtered as cv2 writes them) into
+     deepim_tpu_torch/_build/phase8/; the config is
+     experiments/deepim/cfgs/lm6d_ape_iter4_8epoch.yaml read by the port's
+     YAML reader, its dataset paths, classes and test set overridden; a
+     seeded checkpoint is saved with save_checkpoint; test_deepim runs at
+     batch 16 once to warm up and once timed into a fresh directory
+     (csr_raster, and nothing else, launched exactly the planned number of
+     times, every table finite, no dropped pairs), then once more on the
+     cached results_pose.pkl (no launch); it prints frames/s over
+     pred_eval's loop (32 batches), the loop's data/net split, the call's
+     other stages as test_deepim reports them, and the PNG decode time per
+     image for each row filter.
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -50,7 +66,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -62,7 +80,9 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from deepim_tpu_torch.config import TrainConfig, TrainIterConfig  # noqa: E402
+from deepim_tpu_torch.config import Config, TrainConfig, TrainIterConfig, load_config  # noqa: E402
+from deepim_tpu_torch.config import update_config_dict, validate_config  # noqa: E402
+from deepim_tpu_torch.data.pairdb import load_gt_pairdb  # noqa: E402
 from deepim_tpu_torch.engine import (  # noqa: E402
     TrainState,
     lr_steps_from_config,
@@ -70,14 +90,22 @@ from deepim_tpu_torch.engine import (  # noqa: E402
     make_train_step,
     warmup_multifactor_schedule,
 )
-from deepim_tpu_torch.engine.refine import Observation, refine  # noqa: E402
+from deepim_tpu_torch.engine.checkpoint import save_checkpoint  # noqa: E402
+from deepim_tpu_torch.engine.refine import EngineConfig, MeshBuffers, Observation, refine  # noqa: E402
+from deepim_tpu_torch.engine.refine import tune_raster_for_bank  # noqa: E402
+from deepim_tpu_torch.engine.tester import pred_eval  # noqa: E402
 from deepim_tpu_torch.engine.scene import LINEMOD_K, build_scene, train_batch  # noqa: E402
 from deepim_tpu_torch.models.flownet import FlowNetDeepIM  # noqa: E402
 from deepim_tpu_torch.ops.masks import box_fill  # noqa: E402
 from deepim_tpu_torch.render import raster_kernels as rk  # noqa: E402
-from deepim_tpu_torch.render.rasterizer import KERNELS, kernel_inputs, rasterize  # noqa: E402
+from deepim_tpu_torch.render.mesh import MeshBank, make_icosphere, make_test_cube  # noqa: E402
+from deepim_tpu_torch.render.rasterizer import KERNELS, RasterConfig, kernel_inputs, rasterize  # noqa: E402
 from deepim_tpu_torch.render.stress import stress_tile_list, stress_work_list  # noqa: E402
+from deepim_tpu_torch.tools.synth_data import generate_dataset  # noqa: E402
+from deepim_tpu_torch.tools.test_net import test_deepim  # noqa: E402
 from deepim_tpu_torch.tools.timing import graph_launch_ms  # noqa: E402
+from deepim_tpu_torch.tools.train_net import build_mesh_bank  # noqa: E402
+from deepim_tpu_torch.utils.png import read_png, write_png  # noqa: E402
 
 H, W = 480, 640
 N_CALLS = 5
@@ -131,6 +159,11 @@ STRESS_CASES = ((1, 8), (4, 8), (1, 16), (4, 16), (4, 128), (1, 2))
 # 16, 8 and 2 blocks, and the general block shapes 16x1 (1x32) and 2x8 (16x6).
 DENSE_STRESS_TILES = ((8, 128), (16, 16), (8, 16), (8, 4), (1, 32), (16, 6))
 HEAVY_K_CAP = 512     # RasterConfig's default max_faces_per_tile
+# Phase 8: the eval driver on a devkit written here (gitignored).
+PHASE8_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase8")
+EVAL_CFG = os.path.join(ROOT, "experiments", "deepim", "cfgs", "lm6d_ape_iter4_8epoch.yaml")
+EVAL_B = 16           # test batch
+EVAL_PAIRS = 256      # test pairs per class: 32 timed batches in all
 
 
 def log(msg: str) -> None:
@@ -547,6 +580,195 @@ def small_reference_checks(dev) -> None:
     train_reference_check(dev)
 
 
+def _table_rows(results: dict, classes, num_iters: int):
+    """(table, class, iteration, row) of the 5cm5deg, ADD(-S) and Proj2D
+    tables; raises if a class, an iteration or a key is missing."""
+    keys = {"pose": ("rot_acc", "trans_acc", "space_acc", "acc_5cm_5deg"),
+            "add": ("0.02", "0.05", "0.10", "auc", "errors"),
+            "arp_2d": ("2", "5", "10", "20", "auc", "errors", "curve", "curve_thresholds")}
+    for table, want in keys.items():
+        for cls in classes:
+            for it in range(num_iters):
+                row = results[table][cls][it]
+                missing = set(want) - set(row)
+                if missing:
+                    raise AssertionError(f"{table} {cls} iter {it + 1}: keys {sorted(missing)} missing")
+                yield table, cls, it, row
+
+
+def check_tables(label: str, results: dict, classes, num_iters: int) -> None:
+    for table, cls, it, row in _table_rows(results, classes, num_iters):
+        for key, v in row.items():
+            if not np.isfinite(np.asarray(v, np.float64)).all():
+                raise AssertionError(f"{label}: {table} {cls} iter {it + 1} {key} not finite")
+
+
+def small_driver_check(dev) -> None:
+    """pred_eval on a 64x64 devkit (a cube and an 80-face icosphere, dense
+    tile_raster renders) on the card and on the CPU with the same FAST_TEST
+    weights: per-iteration poses to 2e-4, as the tests hold the CPU path to
+    the JAX package."""
+    import pickle
+
+    k64 = np.array([[80.0, 0, 32.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
+    devkit = os.path.join(PHASE8_DIR, "devkit64")
+    generate_dataset(devkit, {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 1)}, k64,
+                     n_train=0, n_val=5, height=64, width=64, z_range=(0.45, 0.6),
+                     raster_cfg=RasterConfig(height=64, width=64, tile_h=16, tile_w=16, max_faces_per_tile=128,
+                                             chunk=16, znear=0.05, zfar=10.0), device="cpu")
+    cfg = update_config_dict(Config(), {
+        "SCALES": [64, 64],
+        "dataset": {"dataset_path": devkit, "root_path": devkit, "model_dir": os.path.join(devkit, "models"),
+                    "class_name": ["cube", "sphere"], "INTRINSIC_MATRIX": k64.flatten().tolist(),
+                    "NORMALIZE_FLOW": 20.0, "ZNEAR": 0.05, "ZFAR": 10.0},
+        "network": {"INPUT_MASK": True, "PIXEL_MEANS": list(PIXEL_MEANS)},
+        "TEST": {"test_iter": 4, "FAST_TEST": True},
+    })
+    dbs = [load_gt_pairdb(cfg, "LM6D_REFINE", f"val_{c}", c, devkit, devkit) for c in ("cube", "sphere")]
+    bank = build_mesh_bank(cfg)
+    model = make_model(False, 6, "cpu", hw=(64, 64))
+    poses = {}
+    for d in ("cpu", dev):
+        out = os.path.join(PHASE8_DIR, f"small_{torch.device(d).type}")
+        pred_eval(cfg, model.to(d), dbs, bank, out, batch_size=4, device=d)
+        with open(os.path.join(out, "results_pose.pkl"), "rb") as f:
+            poses[torch.device(d).type] = np.stack([np.stack(per_it) for per_cls in pickle.load(f)[0]
+                                                    for per_it in per_cls])
+    err = float(np.abs(poses["cuda"] - poses["cpu"]).max())
+    if not np.isfinite(poses["cuda"]).all() or err > 2e-4:
+        raise AssertionError(f"64x64 eval driver: card vs CPU pose err {err}")
+    log(f"[reference] 64x64 eval driver (pred_eval, 2 classes x 5 pairs, 4 iterations): card vs CPU pose "
+        f"err {err:.3g}")
+
+
+def write_eval_devkit(devkit: str, dev, card: str) -> None:
+    """The phase-8 devkit: 480x640, LINEMOD intrinsics, a cube and a
+    20,480-face icosphere, EVAL_PAIRS test pairs each.  Its renders use a
+    CSR budget tuned to the two meshes, so none drops a face."""
+    meshes = {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 5)}
+    bank = MeshBank.from_meshes([meshes[c] for c in sorted(meshes)]).arrays()
+    raster = tune_raster_for_bank(EngineConfig(raster=RasterConfig(height=H, width=W)), bank, LINEMOD_K).raster
+    t0 = time.perf_counter()
+    generate_dataset(devkit, meshes, LINEMOD_K, n_train=0, n_val=EVAL_PAIRS, height=H, width=W,
+                     raster_cfg=raster, device=dev)
+    n_png = sum(len(files) for _, _, files in os.walk(os.path.join(devkit, "data")) if files)
+    log(f"[eval driver] devkit: 2 classes x {EVAL_PAIRS} pairs at {H}x{W}, {n_png} files under data/, written in "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+
+def eval_config(devkit: str, out_root: str):
+    """lm6d_ape_iter4_8epoch.yaml through the port's reader, pointed at the
+    devkit's two classes and its val_ test lists."""
+    cfg = update_config_dict(load_config(EVAL_CFG), {
+        "output_path": out_root,
+        "dataset": {"dataset_path": devkit, "root_path": devkit, "model_dir": os.path.join(devkit, "models"),
+                    "class_name": ["cube", "sphere"], "NUM_CLASSES": 2, "test_image_set": "val_"},
+    })
+    return validate_config(cfg)
+
+
+def decode_costs(devkit: str, card: str) -> dict:
+    """read_png's time per 480x640 image: the devkit's files (Sub rows) and
+    one colour image re-encoded with each row filter."""
+    out = {}
+    obs = os.path.join(devkit, "data", "observed")
+    for kind in ("color", "depth", "label"):
+        files = sorted(os.path.join(r, f) for r, _, fs in os.walk(obs) for f in fs if f.endswith(f"-{kind}.png"))
+        times = []
+        for path in files[:8]:
+            t0 = time.perf_counter()
+            read_png(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"devkit {kind} (Sub)"] = statistics.median(times)
+    img = read_png(os.path.join(obs, "sphere", "000000-color.png"))
+    tmp = os.path.join(PHASE8_DIR, "filter.png")
+    for ft, name in enumerate(("None", "Sub", "Up", "Average", "Paeth")):
+        write_png(tmp, img, filter_type=ft)
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            back = read_png(tmp)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(back, img):
+            raise AssertionError(f"read_png: filter {name} did not round-trip")
+        out[f"colour, every row {name} ({ft})"] = min(times)
+    log(f"[eval driver] PNG decode ms per {H}x{W} image (read_png, host CPU): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()) + f" [{card}]")
+    return out
+
+
+def drive_eval_driver(dev, card: str) -> dict:
+    """Phase 8 (see the module docstring).  Returns csr_raster's check at
+    the driver's render shape and the timed run's launch count."""
+    devkit = os.path.join(PHASE8_DIR, "devkit")
+    write_eval_devkit(devkit, dev, card)
+    cfg = eval_config(devkit, os.path.join(PHASE8_DIR, "output"))
+    classes = list(cfg.dataset.class_name)
+    n_iter = cfg.TEST.test_iter
+
+    # One render's plan at the driver's config: its launches, and csr_raster
+    # held against its twin at the driver's shape.
+    bank = build_mesh_bank(cfg)
+    ecfg = EngineConfig.from_config(cfg, bank_arrays=bank)
+    _, recs = load_gt_pairdb(cfg, "LM6D_REFINE", "val_sphere", "sphere", devkit, devkit)
+    m = MeshBuffers.gather(bank, np.full(EVAL_B, classes.index("sphere")), device=dev)
+    plan = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid,
+                         torch.from_numpy(np.stack([r["pose_rendered"] for r in recs[:EVAL_B]])),
+                         torch.from_numpy(cfg.dataset.intrinsic_matrix()), ecfg.raster, corners=m.corners,
+                         corner_colors=m.corner_colors, device=dev)
+    if {name for name, _ in plan} != {"csr_raster"}:
+        raise AssertionError(f"eval driver: a render plans {[name for name, _ in plan]}")
+    kernel = check_kernel("csr_raster", plan[0][1], card, shape="eval driver")
+    n_batches = len(classes) * math.ceil(EVAL_PAIRS / EVAL_B)
+    expect = len(plan) * n_iter * n_batches
+
+    model = make_model(True, 3, dev, hw=(cfg.height, cfg.width))
+    runs = {}
+    for name in ("warm-up", "timed"):
+        out = os.path.join(PHASE8_DIR, "output", name)
+        save_checkpoint(os.path.join(out, cfg.TRAIN.model_prefix), cfg.TEST.test_epoch, TrainState(model, None))
+        torch.cuda.synchronize()
+        rk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = test_deepim(cfg, output_dir=out, batch_size=EVAL_B, device=dev)
+        torch.cuda.synchronize()
+        runs[name] = (res, time.perf_counter() - t0, launch_counts())
+    res, wall, counts = runs["timed"]
+    label = "eval driver"
+    if counts != {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": 0}:
+        raise AssertionError(f"{label}: launches {counts}, want csr_raster {expect} ({len(plan)} a render x "
+                             f"{n_iter} iterations x {n_batches} batches) and nothing else")
+    run = res["run"]
+    if run["pairs"] != len(classes) * EVAL_PAIRS or run["raster_dropped"]:
+        raise AssertionError(f"{label}: {run}")
+    check_tables(label, res, classes, n_iter)
+
+    rk.reset_launch_counts()
+    cached = test_deepim(cfg, output_dir=os.path.join(PHASE8_DIR, "output", "timed"), batch_size=EVAL_B,
+                         device=dev)
+    if any(launch_counts().values()) or "run" in cached:
+        raise AssertionError(f"{label}: the cached run refined again ({launch_counts()})")
+    for (_, cls, it, row), (_, _, _, row2) in zip(_table_rows(res, classes, n_iter),
+                                                  _table_rows(cached, classes, n_iter)):
+        if any(not np.array_equal(np.asarray(row[k]), np.asarray(row2[k])) for k in row):
+            raise AssertionError(f"{label}: cached tables differ ({cls} iter {it + 1})")
+
+    loop_s = run["data_s"] + run["net_s"]
+    means = {t: {k: float(np.mean([res[t][c][n_iter - 1][k] for c in classes])) for k in keys}
+             for t, keys in (("pose", ("acc_5cm_5deg",)), ("add", ("0.10", "auc")), ("arp_2d", ("5", "auc")))}
+    log(f"[{label}] test_deepim, {run['pairs']} pairs at {H}x{W}, batch {EVAL_B} ({n_batches} batches), "
+        f"{n_iter} iterations: {run['pairs'] / loop_s:.2f} frames/s over pred_eval's loop (data "
+        f"{run['data_s']:.3f} s + net {run['net_s']:.3f} s); launches {counts} (planned {len(plan)} a render); "
+        f"dropped pairs 0; iteration {n_iter} class means {means}; cached rerun: 0 launches, equal tables "
+        f"[{card}]")
+    log(f"[{label}] the timed call's stages (s, test_deepim's run dict): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in run.items() if k.endswith("_s"))
+        + f"; the whole call {wall:.3f} s, the warm-up call {runs['warm-up'][1]:.3f} s [{card}]")
+    decode_costs(devkit, card)
+    kernel["launches"] = counts["csr_raster"]
+    return kernel
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
@@ -623,7 +845,12 @@ def main() -> int:
     render_comparison(csr_scene, dev, card)
 
     # 7. Small-input reference checks.
+    shutil.rmtree(PHASE8_DIR, ignore_errors=True)
     small_reference_checks(dev)
+    small_driver_check(dev)
+
+    # 8. The eval driver through its front door.
+    driver = drive_eval_driver(dev, card)
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
@@ -633,9 +860,13 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            # tile_raster's second shape (the heavy dense scene) rides on its entry.
+            # tile_raster's second shape (the heavy dense scene) and csr_raster's
+            # at the eval driver's render (with its launches there) ride on
+            # their entries.
             **({f"heavy_{key}": heavy[key] for key in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
                                                        "bound_by")} if name == "tile_raster" else {}),
+            **({f"driver_{key}": driver[key] for key in ("launches", "max_abs_err", "ms", "call_ms", "plain_ms",
+                                                         "bound_ms", "bound_by")} if name == "csr_raster" else {}),
         }
         for name, r in results.items()
     ]

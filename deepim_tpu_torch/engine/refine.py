@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from deepim_tpu_torch.config import Config
 from deepim_tpu_torch.device import resolve_device
 from deepim_tpu_torch.geometry.se3 import RT_transform
 from deepim_tpu_torch.models.flownet import assemble_input
@@ -67,6 +68,39 @@ class EngineConfig:
     texture_sampling: bool = False
     init_mask_host: bool = False
     zoom_dtype: str = "float32"
+
+    @staticmethod
+    def from_config(cfg: Config, train: bool = False, bank_arrays=None) -> "EngineConfig":
+        """Build from a Config.  Pass the mesh bank (`bank_arrays`, as
+        MeshBuffers.gather takes it) so the CSR pair budget is sized from
+        the bank's face geometry (tune_raster_for_bank), as every driver
+        does.  The image zoom stays float32 (bf16 is ROADMAP A5)."""
+        ecfg = EngineConfig(
+            height=cfg.height,
+            width=cfg.width,
+            raster=RasterConfig(height=cfg.height, width=cfg.width, znear=cfg.dataset.ZNEAR,
+                                zfar=cfg.dataset.ZFAR),
+            rot_coord=cfg.network.ROT_COORD,
+            rot_type=cfg.network.ROT_TYPE,
+            trans_means=cfg.dataset.trans_means,
+            trans_stds=cfg.dataset.trans_stds,
+            pixel_means=cfg.network.PIXEL_MEANS,
+            input_depth=cfg.network.INPUT_DEPTH,
+            input_mask=cfg.network.INPUT_MASK,
+            pred_flow=cfg.network.PRED_FLOW,
+            pred_mask=cfg.network.PRED_MASK,
+            update_mask=(cfg.TRAIN.UPDATE_MASK if train else cfg.TEST.UPDATE_MASK),
+            normalize_flow=cfg.dataset.NORMALIZE_FLOW,
+            normalize_3d_point=cfg.dataset.NORMALIZE_3D_POINT,
+            standard_flow_rep=cfg.network.STANDARD_FLOW_REP,
+            num_iters=(cfg.network.TRAIN_ITER_SIZE if train else cfg.TEST.test_iter),
+            init_mask_host=(not train) and cfg.TEST.MASK_DILATE,
+            texture_sampling=cfg.dataset.TEXTURE_SAMPLING,
+            zoom_dtype="float32",
+        )
+        if bank_arrays is not None:
+            ecfg = tune_raster_for_bank(ecfg, bank_arrays, cfg.dataset.intrinsic_matrix())
+        return ecfg
 
 
 def _check_supported(ecfg: EngineConfig) -> None:
@@ -224,6 +258,7 @@ class Observation(NamedTuple):
     mask_gt_observed: torch.Tensor | None    # (B, 1, H, W); None at test time
     depth_observed: torch.Tensor | None      # unused until input_depth is ported
     k: torch.Tensor                          # (3, 3)
+    class_index: torch.Tensor | None = None  # (B,); selects SE(3) heads once REGRESSOR_NUM > 1 is ported
 
     def to(self, device) -> "Observation":
         return Observation(*(None if x is None else x.to(device) for x in self))
@@ -232,7 +267,7 @@ class Observation(NamedTuple):
     def from_batch(batch) -> "Observation":
         """The observation of a training batch (engine/train.py TrainBatch)."""
         return Observation(batch.image_observed, batch.mask_observed, batch.mask_gt_observed,
-                           batch.depth_observed, batch.k)
+                           batch.depth_observed, batch.k, batch.class_index)
 
 
 def render_at_pose(meshes: MeshBuffers, pose, k, ecfg: EngineConfig, with_stats: bool = False,

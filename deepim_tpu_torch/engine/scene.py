@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation
 
+from deepim_tpu_torch.config import DEFAULT_K
 from deepim_tpu_torch.device import resolve_device
 from deepim_tpu_torch.engine.refine import EngineConfig, MeshBuffers, render_at_pose, tune_raster_for_bank
 from deepim_tpu_torch.engine.train import TrainBatch
@@ -28,9 +29,7 @@ from deepim_tpu_torch.render.mesh import MeshBank, make_icosphere, make_mixed_de
 from deepim_tpu_torch.render.rasterizer import RasterConfig, _csr_pack_for
 
 # LINEMOD camera intrinsics (the 480x640 scenes).
-LINEMOD_K = np.array(
-    [[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899], [0.0, 0.0, 1.0]], np.float32
-)
+LINEMOD_K = np.array(DEFAULT_K, np.float32)
 
 
 @dataclasses.dataclass

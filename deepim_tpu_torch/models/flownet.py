@@ -126,7 +126,8 @@ class FlowNetDeepIM(nn.Module):
     `generator` (a seeded torch.Generator) with the JAX model's init rules:
     Xavier-uniform FCs, the quaternion head's w-column trick, a zero
     translation head and N(0, 0.01) mask conv; convolutions use LeCun
-    normal, flax's default."""
+    normal, flax's default.  On the meta device no weights are drawn: the
+    caller assigns them (load_state_dict(assign=True))."""
 
     def __init__(self, in_channels: int = 8, input_hw: tuple[int, int] = (480, 640),
                  pred_flow: bool = True, pred_mask: bool = True,
@@ -155,7 +156,8 @@ class FlowNetDeepIM(nn.Module):
             self.Convolution3 = nn.Conv2d(770, 2, 3, padding=1, device=dev)
         if pred_mask:
             self.mask_conv3 = nn.Conv2d(770, 1, 3, padding=1, device=dev)
-        self.reset_parameters(generator)
+        if dev.type != "meta":
+            self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):

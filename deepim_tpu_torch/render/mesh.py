@@ -1,15 +1,21 @@
-"""Host-side meshes and padded class-indexable mesh banks (numpy copy of
-the parts of deepim_tpu/render/mesh.py the refinement path uses).
+"""Host-side meshes, their OBJ loaders and padded class-indexable mesh
+banks (numpy copy of the parts of deepim_tpu/render/mesh.py the
+refinement and evaluation paths use).
 
-Texture-carrying meshes (uv + texture image) belong to the texture-sampling
-render path, which this port does not have yet, so Mesh holds vertex
-colors only.
+A textured model (textured.obj + texture_map.png) is baked into vertex
+colours at load time: vertices are split at uv seams and the texture is
+sampled once per vertex.  Texture-carrying meshes (uv + texture image)
+belong to the per-fragment texture-sampling render path, which this port
+does not have yet (ROADMAP A8), so Mesh holds vertex colours only.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from deepim_tpu_torch.utils.png import read_png
 
 
 @dataclass
@@ -27,6 +33,122 @@ class Mesh:
     @property
     def num_faces(self) -> int:
         return self.faces.shape[0]
+
+    def diameter(self) -> float:
+        """The bounding box's diagonal (an upper bound of the largest
+        pairwise vertex distance; datasets ship models_info.txt instead)."""
+        lo = self.vertices.min(axis=0)
+        hi = self.vertices.max(axis=0)
+        return float(np.linalg.norm(hi - lo))
+
+
+def parse_obj(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Minimal Wavefront OBJ parser.
+
+    Returns (vertices (V, 3), texcoords (T, 2), faces_v (F, 3), faces_vt
+    (F, 3), vertex colours (V, 3) or (0, 3)).  Reads 'v' (with the
+    'v x y z r g b' colour extension), 'vt' and 'f a/b/c' lines;
+    polygons are fan-triangulated, negative indices count from the end."""
+    verts: list[list[float]] = []
+    vcols: list[list[float]] = []
+    texs: list[list[float]] = []
+    faces_v: list[list[int]] = []
+    faces_vt: list[list[int]] = []
+    with open(path, "r") as f:
+        for line in f:
+            if line.startswith("v "):
+                p = line.split()
+                verts.append([float(p[1]), float(p[2]), float(p[3])])
+                if len(p) >= 7:
+                    vcols.append([float(p[4]), float(p[5]), float(p[6])])
+            elif line.startswith("vt "):
+                p = line.split()
+                texs.append([float(p[1]), float(p[2])])
+            elif line.startswith("f "):
+                idx = []
+                for tok in line.split()[1:]:
+                    sub = tok.split("/")
+                    idx.append((int(sub[0]), int(sub[1]) if len(sub) > 1 and sub[1] else 0))
+                for i in range(1, len(idx) - 1):
+                    tri = [idx[0], idx[i], idx[i + 1]]
+                    faces_v.append([t[0] - 1 if t[0] > 0 else len(verts) + t[0] for t in tri])
+                    faces_vt.append([t[1] - 1 if t[1] > 0 else len(texs) + t[1] for t in tri])
+    v = np.asarray(verts, np.float32)
+    vt = np.asarray(texs, np.float32) if texs else np.zeros((1, 2), np.float32)
+    fv = np.asarray(faces_v, np.int32)
+    fvt = np.asarray(faces_vt, np.int32)
+    vc = np.asarray(vcols, np.float32) if len(vcols) == len(verts) else np.zeros((0, 3), np.float32)
+    return v, vt, fv, fvt, vc
+
+
+def _sample_texture(texture: np.ndarray, uv: np.ndarray) -> np.ndarray:
+    """Bilinear texture lookup at uv in [0, 1]^2 (v up, OpenGL's
+    convention: row 0 of the image is v = 1)."""
+    th, tw = texture.shape[:2]
+    u = np.clip(uv[:, 0], 0.0, 1.0) * (tw - 1)
+    v = (1.0 - np.clip(uv[:, 1], 0.0, 1.0)) * (th - 1)
+    x0 = np.floor(u).astype(np.int64)
+    y0 = np.floor(v).astype(np.int64)
+    x1 = np.minimum(x0 + 1, tw - 1)
+    y1 = np.minimum(y0 + 1, th - 1)
+    fx = (u - x0)[:, None]
+    fy = (v - y0)[:, None]
+    t = texture.astype(np.float32)
+    return (
+        t[y0, x0] * (1 - fx) * (1 - fy)
+        + t[y0, x1] * fx * (1 - fy)
+        + t[y1, x0] * (1 - fx) * fy
+        + t[y1, x1] * fx * fy
+    )
+
+
+def split_uv_seams(v: np.ndarray, vt: np.ndarray, fv: np.ndarray, fvt: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One vertex per distinct (position, texcoord) pair, so every face
+    corner carries its exact uv.  Returns (vertices (V', 3), uv (V', 2),
+    faces (F, 3))."""
+    key = fv.astype(np.int64) * (len(vt) + 1) + (fvt.astype(np.int64) + 1)
+    uniq, inv = np.unique(key.reshape(-1), return_inverse=True)
+    new_faces = inv.reshape(fv.shape).astype(np.int32)
+    vi = (uniq // (len(vt) + 1)).astype(np.int64)
+    ti = (uniq % (len(vt) + 1)).astype(np.int64) - 1
+    new_v = v[vi]
+    new_uv = np.where((ti >= 0)[:, None], vt[np.maximum(ti, 0)], 0.0).astype(np.float32)
+    return new_v, new_uv, new_faces
+
+
+def load_textured_mesh(model_dir: str, obj_name: str = "textured.obj",
+                       tex_name: str = "texture_map.png", keep_texture: bool = False) -> Mesh:
+    """Load a LINEMOD-style model directory into a vertex-coloured Mesh:
+    a vertex-coloured OBJ (colours in [0, 1] or [0, 255]), an OBJ with a
+    texture image (baked per vertex after splitting uv seams), or an
+    uncoloured OBJ (grey 128)."""
+    if keep_texture:
+        raise NotImplementedError("keep_texture (per-fragment texture sampling) is not ported "
+                                  "yet (ROADMAP A8)")
+    v, vt, fv, fvt, vc = parse_obj(os.path.join(model_dir, obj_name))
+    tex_path = os.path.join(model_dir, tex_name)
+    if vc.shape[0] == v.shape[0] and not os.path.exists(tex_path):
+        scale = 255.0 if vc.max() <= 1.0 + 1e-6 else 1.0
+        colors = (vc * scale).astype(np.float32)
+    elif os.path.exists(tex_path):
+        tex = read_png(tex_path)
+        if tex.ndim == 2:
+            tex = np.repeat(tex[:, :, None], 3, axis=2)
+        v, vert_uv, fv = split_uv_seams(v, vt, fv, fvt)
+        colors = _sample_texture(tex[:, :, :3], vert_uv).astype(np.float32)
+    else:
+        colors = np.full((v.shape[0], 3), 128.0, np.float32)
+    return Mesh(vertices=v, faces=fv, colors=colors)
+
+
+def write_obj(path: str, mesh: Mesh) -> None:
+    """Write a vertex-coloured OBJ ('v x y z r g b', colours in [0, 1])."""
+    with open(path, "w") as f:
+        for p, c in zip(mesh.vertices, mesh.colors / 255.0):
+            f.write(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {c[0]:.4f} {c[1]:.4f} {c[2]:.4f}\n")
+        for tri in mesh.faces:
+            f.write(f"f {tri[0] + 1} {tri[1] + 1} {tri[2] + 1}\n")
 
 
 @dataclass

@@ -478,6 +478,15 @@ def _untile(plan: _Plan, out, cfg):
     return img[..., 0:3], img[..., 3], plan.dropped
 
 
+def rasterize_single(vertices, colors, faces, face_valid, pose, k, cfg: RasterConfig, device="cuda"):
+    """Render one mesh at one pose: (V, 3), (V, 3), (F, 3), (F,), (3, 4),
+    (3, 3) -> rgb (H, W, 3) in [0, 255], depth (H, W) (camera z, 0 where
+    nothing is hit)."""
+    rgb, depth = rasterize(vertices[None], colors[None], faces[None], face_valid[None], pose[None],
+                           k, cfg, device=device)
+    return rgb[0], depth[0]
+
+
 def render_mask(depth: torch.Tensor, thresh: float = 0.2) -> torch.Tensor:
     """Object mask from rendered depth."""
     return (depth > thresh).to(depth.dtype)

@@ -1,0 +1,148 @@
+"""Generate an LM6d_refine-layout dataset from meshes (the single-object
+generator of deepim_tpu/tools/synth_data.py, rendering with the port's
+rasterizer and writing PNGs with utils/png.py):
+
+    data/observed/<class>/<idx>-color.png / -depth.png / -label.png
+    data/gt_observed/<class>/<idx>-color.png / -depth.png / -pose.txt
+    data/rendered/<class>/<idx>_<k>-color.png / -depth.png / -pose.txt
+    image_set/train_<class>.txt, val_<class>.txt
+    models/<class>/points.xyz, textured.obj; models/models_info.txt
+
+The same seed draws the same poses as the JAX generator, and the JAX
+package's PairDB reads the result unchanged.  Initial poses perturb the gt
+pose with per-axis Euler noise N(0, 15 deg) clipped at 45 deg and
+translation noise N(0, (0.01, 0.01, 0.05)) m.  Every PNG row is Sub
+filtered, as cv2.imwrite (the JAX generator's writer) filters them, so the
+files decode as the JAX-written devkit's do.
+
+    python -m deepim_tpu_torch.tools.synth_data --out <dir> [--n-train 64] [--n-val 16]
+        [--per-observed 1] [--device cuda|cpu]
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+from scipy.spatial.transform import Rotation as R
+
+from deepim_tpu_torch.data.pairdb import save_pose_file
+from deepim_tpu_torch.device import resolve_device
+from deepim_tpu_torch.engine.scene import LINEMOD_K
+from deepim_tpu_torch.render.mesh import write_obj
+from deepim_tpu_torch.render.rasterizer import RasterConfig, rasterize_single
+from deepim_tpu_torch.utils.png import write_png
+
+ROT_NOISE_STD_DEG = 15.0
+ROT_NOISE_MAX_DEG = 45.0
+TRANS_NOISE_STD = (0.01, 0.01, 0.05)
+PNG_FILTER = 1  # Sub
+
+
+def sample_perturbed_pose(pose: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
+    """The gt pose perturbed by the initial-pose noise model."""
+    ang = np.clip(rng.normal(0, ROT_NOISE_STD_DEG, 3), -ROT_NOISE_MAX_DEG, ROT_NOISE_MAX_DEG)
+    r_noise = R.from_euler("xyz", ang, degrees=True).as_matrix()
+    t_noise = rng.normal(0, TRANS_NOISE_STD, 3)
+    out = pose.copy().astype(np.float32)
+    out[:, :3] = r_noise @ pose[:, :3]
+    out[:, 3] = pose[:, 3] + t_noise
+    return out
+
+
+def generate_dataset(devkit_path: str, meshes: dict, k: np.ndarray, n_train: int = 16,
+                     n_val: int = 4, rendered_per_observed: int = 1, height: int = 480,
+                     width: int = 640, seed: int = 0, depth_factor: float = 1000.0,
+                     z_range: tuple[float, float] = (0.5, 0.9), raster_cfg: RasterConfig | None = None,
+                     device="cuda") -> None:
+    """Render and write a complete LM6d_refine-layout dataset.  meshes:
+    class name -> render.mesh.Mesh."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    cfg = raster_cfg or RasterConfig(height=height, width=width)
+    os.makedirs(devkit_path, exist_ok=True)
+    classes = sorted(meshes.keys())
+    kt = torch.from_numpy(np.asarray(k, np.float32)).to(dev)
+
+    info_lines = []
+    for ci, cls in enumerate(classes, start=1):
+        mesh = meshes[cls]
+        mdir = os.path.join(devkit_path, "models", cls)
+        os.makedirs(mdir, exist_ok=True)
+        np.savetxt(os.path.join(mdir, "points.xyz"), mesh.vertices)
+        write_obj(os.path.join(mdir, "textured.obj"), mesh)
+        info_lines.append(f"{ci} d {mesh.diameter() * 1000.0:.4f}")
+    with open(os.path.join(devkit_path, "models", "models_info.txt"), "w") as f:
+        f.write("\n".join(info_lines) + "\n")
+
+    image_set_dir = os.path.join(devkit_path, "image_set")
+    os.makedirs(image_set_dir, exist_ok=True)
+
+    def write_render(prefix: str, rgb, depth) -> None:
+        write_png(prefix + "-color.png", rgb.cpu().numpy().astype(np.uint8), PNG_FILTER)
+        write_png(prefix + "-depth.png", (depth.cpu().numpy() * depth_factor).astype(np.uint16), PNG_FILTER)
+
+    for ci, cls in enumerate(classes, start=1):
+        mesh = meshes[cls]
+        verts, cols = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (mesh.vertices, mesh.colors))
+        faces = torch.from_numpy(np.asarray(mesh.faces, np.int32)).to(dev)
+        fvalid = torch.ones(mesh.num_faces, dtype=torch.bool, device=dev)
+
+        def render(pose):
+            return rasterize_single(verts, cols, faces, fvalid, torch.from_numpy(pose).to(dev), kt, cfg,
+                                    device=dev)
+
+        obs_dir = os.path.join(devkit_path, "data", "observed", cls)
+        gt_dir = os.path.join(devkit_path, "data", "gt_observed", cls)
+        rend_dir = os.path.join(devkit_path, "data", "rendered", cls)
+        for d in (obs_dir, gt_dir, rend_dir):
+            os.makedirs(d, exist_ok=True)
+
+        train_lines, val_lines = [], []
+        for i in range(n_train + n_val):
+            idx = f"{i:06d}"
+            rot = R.random(random_state=rng).as_matrix().astype(np.float32)
+            t = np.array([rng.uniform(-0.05, 0.05), rng.uniform(-0.05, 0.05), rng.uniform(*z_range)],
+                         np.float32)
+            pose = np.concatenate([rot, t[:, None]], axis=1)
+            rgb, depth = render(pose)
+            write_render(os.path.join(obs_dir, idx), rgb, depth)
+            write_png(os.path.join(obs_dir, f"{idx}-label.png"),
+                      (depth.cpu().numpy() > 0).astype(np.uint8) * ci, PNG_FILTER)
+            write_render(os.path.join(gt_dir, idx), rgb, depth)
+            save_pose_file(os.path.join(gt_dir, f"{idx}-pose.txt"), pose)
+
+            for kk in range(rendered_per_observed):
+                ridx = f"{idx}_{kk}"
+                rpose = sample_perturbed_pose(pose, rng)
+                write_render(os.path.join(rend_dir, ridx), *render(rpose))
+                save_pose_file(os.path.join(rend_dir, f"{ridx}-pose.txt"), rpose)
+                line = f"{cls}/{idx} {cls}/{ridx}"
+                (train_lines if i < n_train else val_lines).append(line)
+
+        with open(os.path.join(image_set_dir, f"train_{cls}.txt"), "w") as f:
+            f.write("\n".join(train_lines) + "\n")
+        with open(os.path.join(image_set_dir, f"val_{cls}.txt"), "w") as f:
+            f.write("\n".join(val_lines) + "\n")
+
+
+def main(argv: list[str] | None = None) -> None:
+    import argparse
+
+    from deepim_tpu_torch.render.mesh import make_icosphere, make_test_cube
+
+    ap = argparse.ArgumentParser(description="Write a synthetic LM6d_refine-layout devkit (cube + "
+                                             "sphere classes, 480x640, LINEMOD intrinsics)")
+    ap.add_argument("--out", required=True, help="devkit output path")
+    ap.add_argument("--n-train", type=int, default=64)
+    ap.add_argument("--n-val", type=int, default=16)
+    ap.add_argument("--per-observed", type=int, default=1)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    meshes = {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 3)}
+    generate_dataset(args.out, meshes, LINEMOD_K, args.n_train, args.n_val, args.per_observed, device=args.device)
+    print("wrote dataset to", args.out)
+
+
+if __name__ == "__main__":
+    main()

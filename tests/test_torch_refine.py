@@ -183,10 +183,16 @@ def test_csr_refine_step_ico4():
     assert int(t_aux["raster_dropped"]) == int(j_aux["raster_dropped"]) == 0
 
 
+# What the port must not import: JAX and the JAX package, and the
+# packages its H100 host does not have.
+_BANNED = ("jax", "flax", "optax", "deepim_tpu", "cv2", "PIL", "yaml", "torchvision")
+
+
 def test_package_import_hygiene():
-    """Every deepim_tpu_torch module imports with JAX made unimportable, and
-    no source file of the package or chip_smoke.py imports JAX, flax, optax
-    or deepim_tpu."""
+    """Every deepim_tpu_torch module imports with JAX, deepim_tpu and the
+    packages the H100 host lacks (cv2, PIL, yaml, torchvision) made
+    unimportable, and no source file of the package or chip_smoke.py
+    imports any of them."""
     pkg = REPO / "deepim_tpu_torch"
     sources = [p for p in pkg.rglob("*.py") if "_build" not in p.relative_to(pkg).parts]
     mods = sorted(
@@ -195,7 +201,7 @@ def test_package_import_hygiene():
     )
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'optax', 'deepim_tpu'):\n"
+        f"for name in {_BANNED!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
@@ -213,7 +219,7 @@ def test_package_import_hygiene():
             if s.startswith(("import ", "from ")) and any(
                 tok in s.replace(",", " ").split()
                 or any(w.startswith(tok + ".") for w in s.split())
-                for tok in ("jax", "flax", "optax", "deepim_tpu")
+                for tok in _BANNED
             ):
                 bad.append(f"{p.name}: {s}")
     assert not bad, bad
