@@ -41,7 +41,8 @@ Phases (each raises on failure; the script then exits non-zero):
      planes64;
   7. small-input reference checks: the card's renders, refinement and
      training step equal the CPU path (the one the tests hold to the JAX
-     package), and so does the eval driver (pred_eval) on a 64x64 devkit;
+     package), and so do the eval driver (pred_eval) and one epoch of the
+     training driver (train_net, same initial weights) on 64x64 devkits;
   8. the eval driver through its front door: tools/synth_data.py writes a
      480x640 LINEMOD-layout devkit (LINEMOD intrinsics; classes "cube", a
      0.08 m cube, and "sphere", a 20,480-face icosphere of radius 0.05 m;
@@ -57,7 +58,23 @@ Phases (each raises on failure; the script then exits non-zero):
      cached results_pose.pkl (no launch); it prints frames/s over
      pred_eval's loop (32 batches), the loop's data/net split, the call's
      other stages as test_deepim reports them, and the PNG decode time per
-     image for each row filter.
+     image for each row filter;
+  9. the training driver through its front door: a second devkit, the
+     same classes and intrinsics with 32 training and 16 test pairs a
+     class, in deepim_tpu_torch/_build/phase9/; the same recipe file with
+     network.pretrained cleared (the repo holds no pretrained FlowNet),
+     TRAIN.end_epoch 2, global-norm clipping at 1.0 (see RECIPE_TCFG) and
+     TEST.test_epoch 2; its LM6D_REFINE+LM6D_REFINE_SYN sets make an epoch of
+     128 pairs (half data_syn), 32 steps of batch 4 x 4 inner iterations.
+     A one-epoch warm-up on the real set alone, then train_net timed from
+     seeded weights (csr_raster, and nothing else, launched exactly the
+     planned number of times; every loss finite, no dropped pair, every
+     parameter moved, checkpoints for epochs 1 and 2), then test_deepim on
+     the trained network (model=) and from the epoch-2 checkpoint, with
+     equal tables.  It prints samples/s per epoch with the data path, the
+     loop's time blocked on the loader beside its time in train steps, the
+     decode cache's hits and misses, the checkpoint seconds, whether
+     TensorBoard logs, and the test's frames/s.
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -90,7 +107,7 @@ from deepim_tpu_torch.engine import (  # noqa: E402
     make_train_step,
     warmup_multifactor_schedule,
 )
-from deepim_tpu_torch.engine.checkpoint import save_checkpoint  # noqa: E402
+from deepim_tpu_torch.engine.checkpoint import checkpoint_path, save_checkpoint  # noqa: E402
 from deepim_tpu_torch.engine.refine import EngineConfig, MeshBuffers, Observation, refine  # noqa: E402
 from deepim_tpu_torch.engine.refine import tune_raster_for_bank  # noqa: E402
 from deepim_tpu_torch.engine.tester import pred_eval  # noqa: E402
@@ -104,8 +121,9 @@ from deepim_tpu_torch.render.stress import stress_tile_list, stress_work_list  #
 from deepim_tpu_torch.tools.synth_data import generate_dataset  # noqa: E402
 from deepim_tpu_torch.tools.test_net import test_deepim  # noqa: E402
 from deepim_tpu_torch.tools.timing import graph_launch_ms  # noqa: E402
-from deepim_tpu_torch.tools.train_net import build_mesh_bank  # noqa: E402
+from deepim_tpu_torch.tools.train_net import build_mesh_bank, build_model, train_net  # noqa: E402
 from deepim_tpu_torch.utils.png import read_png, write_png  # noqa: E402
+from deepim_tpu_torch.utils.tb import TBLogger  # noqa: E402
 
 H, W = 480, 640
 N_CALLS = 5
@@ -164,6 +182,11 @@ PHASE8_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase8")
 EVAL_CFG = os.path.join(ROOT, "experiments", "deepim", "cfgs", "lm6d_ape_iter4_8epoch.yaml")
 EVAL_B = 16           # test batch
 EVAL_PAIRS = 256      # test pairs per class: 32 timed batches in all
+# Phase 9: the training driver on a devkit of its own (gitignored).
+PHASE9_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase9")
+TRAIN_PAIRS = 32      # training pairs per class, read as LM6D_REFINE and as LM6D_REFINE_SYN
+TRAIN_VAL_PAIRS = 16  # test pairs per class
+TRAIN_EPOCHS = 2
 
 
 def log(msg: str) -> None:
@@ -641,19 +664,63 @@ def small_driver_check(dev) -> None:
         f"err {err:.3g}")
 
 
-def write_eval_devkit(devkit: str, dev, card: str) -> None:
-    """The phase-8 devkit: 480x640, LINEMOD intrinsics, a cube and a
-    20,480-face icosphere, EVAL_PAIRS test pairs each.  Its renders use a
-    CSR budget tuned to the two meshes, so none drops a face."""
+def small_train_driver_check(dev) -> None:
+    """One epoch of train_net on a 64x64 devkit (a cube and an 80-face
+    icosphere, 4 training pairs a class read as LM6D_REFINE and as
+    LM6D_REFINE_SYN: 4 steps of batch 4 x 2 inner iterations, dense
+    tile_raster renders) on the card and on the CPU from the same initial
+    weights: every inner iteration's losses and the parameters after the
+    epoch to train_reference_check's tolerances."""
+    k64 = np.array([[80.0, 0, 32.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
+    devkit = os.path.join(PHASE9_DIR, "devkit64")
+    generate_dataset(devkit, {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 1)}, k64,
+                     n_train=4, n_val=0, height=64, width=64, z_range=(0.45, 0.6),
+                     raster_cfg=RasterConfig(height=64, width=64, tile_h=16, tile_w=16, max_faces_per_tile=128,
+                                             chunk=16, znear=0.05, zfar=10.0), device="cpu")
+    cfg = update_config_dict(Config(), {
+        "SCALES": [64, 64],
+        "dataset": {"dataset": "LM6D_REFINE+LM6D_REFINE_SYN", "image_set": "train_+train_",
+                    "dataset_path": devkit, "root_path": devkit, "model_dir": os.path.join(devkit, "models"),
+                    "class_name": ["cube", "sphere"], "INTRINSIC_MATRIX": k64.flatten().tolist(),
+                    "NORMALIZE_FLOW": 20.0, "ZNEAR": 0.05, "ZFAR": 10.0},
+        "network": {"INPUT_MASK": True, "PRED_FLOW": True, "PRED_MASK": True, "TRAIN_ITER": True,
+                    "TRAIN_ITER_SIZE": 2, "PIXEL_MEANS": list(PIXEL_MEANS)},
+        "train_iter": {"SE3_PM_LOSS": True, "LW_PM": 0.1, "NUM_3D_SAMPLE": 16, "LW_FLOW": 0.25, "LW_MASK": 0.03},
+        "TRAIN": {"BATCH_PAIRS": 4, "end_epoch": 1, "lr": 1e-4, "lr_step": "", "INIT_MASK": "box_gt",
+                  "UPDATE_MASK": "box_gt", "MASK_DILATE": True, "FLOW_WEIGHT_TYPE": "viz"},
+    })
+    init = make_model(True, 5, "cpu", hw=(64, 64)).state_dict()
+    runs = []
+    for i, d in enumerate(("cpu", dev)):
+        state = train_net(cfg, output_dir=os.path.join(PHASE9_DIR, f"small_{i}"), device=d, init_state_dict=init)
+        runs.append((state.epochs[0]["metrics"], {k: v.cpu() for k, v in state.model.state_dict().items()}))
+    (m_c, p_c), (m_g, p_g) = runs
+    keys = ("pm_loss", "flow_loss", "mask_loss", "total")
+    if any(m_c[k].shape != (4, 2) or m_g[k].shape != (4, 2) or not np.isfinite(m_g[k]).all() for k in keys):
+        raise AssertionError(f"64x64 train_net: losses {m_c} on the CPU, {m_g} on the card")
+    loss_err = max(float((np.abs(m_g[k] - m_c[k]) / np.abs(m_c[k])).max()) for k in keys)
+    par_err = max(float((p_g[k] - p_c[k]).abs().max()) / (1e-6 + 1e-2 * float((p_c[k] - init[k]).abs().max()))
+                  for k in p_c)
+    if loss_err > 1e-4 or par_err > 1.0:
+        raise AssertionError(f"64x64 train_net epoch: card vs CPU loss rel err {loss_err}, parameter err "
+                             f"{par_err} of its tolerance")
+    log(f"[reference] 64x64 train_net, one epoch (4 steps x 2 inner iterations): card vs CPU loss rel err "
+        f"{loss_err:.3g}, parameter err {par_err:.3g} of tolerance")
+
+
+def write_devkit(devkit: str, n_train: int, n_val: int, dev, card: str, label: str) -> None:
+    """A phase-8/9 devkit: 480x640, LINEMOD intrinsics, a cube and a
+    20,480-face icosphere, n_train training and n_val test pairs each.  Its
+    renders use a CSR budget tuned to the two meshes, so none drops a face."""
     meshes = {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 5)}
     bank = MeshBank.from_meshes([meshes[c] for c in sorted(meshes)]).arrays()
     raster = tune_raster_for_bank(EngineConfig(raster=RasterConfig(height=H, width=W)), bank, LINEMOD_K).raster
     t0 = time.perf_counter()
-    generate_dataset(devkit, meshes, LINEMOD_K, n_train=0, n_val=EVAL_PAIRS, height=H, width=W,
+    generate_dataset(devkit, meshes, LINEMOD_K, n_train=n_train, n_val=n_val, height=H, width=W,
                      raster_cfg=raster, device=dev)
     n_png = sum(len(files) for _, _, files in os.walk(os.path.join(devkit, "data")) if files)
-    log(f"[eval driver] devkit: 2 classes x {EVAL_PAIRS} pairs at {H}x{W}, {n_png} files under data/, written in "
-        f"{time.perf_counter() - t0:.2f} s [{card}]")
+    log(f"[{label}] devkit: 2 classes x ({n_train} training + {n_val} test) pairs at {H}x{W}, {n_png} files under "
+        f"data/, written in {time.perf_counter() - t0:.2f} s [{card}]")
 
 
 def eval_config(devkit: str, out_root: str):
@@ -701,7 +768,7 @@ def drive_eval_driver(dev, card: str) -> dict:
     """Phase 8 (see the module docstring).  Returns csr_raster's check at
     the driver's render shape and the timed run's launch count."""
     devkit = os.path.join(PHASE8_DIR, "devkit")
-    write_eval_devkit(devkit, dev, card)
+    write_devkit(devkit, 0, EVAL_PAIRS, dev, card, "eval driver")
     cfg = eval_config(devkit, os.path.join(PHASE8_DIR, "output"))
     classes = list(cfg.dataset.class_name)
     n_iter = cfg.TEST.test_iter
@@ -765,6 +832,119 @@ def drive_eval_driver(dev, card: str) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in run.items() if k.endswith("_s"))
         + f"; the whole call {wall:.3f} s, the warm-up call {runs['warm-up'][1]:.3f} s [{card}]")
     decode_costs(devkit, card)
+    kernel["launches"] = counts["csr_raster"]
+    return kernel
+
+
+def train_driver_config(devkit: str, out_root: str, **train):
+    """lm6d_ape_iter4_8epoch.yaml through the port's reader, pointed at the
+    phase-9 devkit, trained from seeded weights for TRAIN_EPOCHS epochs
+    with global-norm clipping (RECIPE_TCFG), tested at the last epoch."""
+    cfg = update_config_dict(load_config(EVAL_CFG), {
+        "output_path": out_root,
+        "dataset": {"dataset_path": devkit, "root_path": devkit, "model_dir": os.path.join(devkit, "models"),
+                    "class_name": ["cube", "sphere"], "NUM_CLASSES": 2, "test_image_set": "val_"},
+        "network": {"pretrained": ""},
+        "TRAIN": {"end_epoch": TRAIN_EPOCHS, "grad_clip": RECIPE_TCFG.grad_clip, **train},
+        "TEST": {"test_epoch": TRAIN_EPOCHS},
+    })
+    return validate_config(cfg)
+
+
+def drive_train_driver(dev, card: str) -> dict:
+    """Phase 9 (see the module docstring).  Returns csr_raster's check at
+    the training driver's render shape and the timed run's launch count."""
+    devkit = os.path.join(PHASE9_DIR, "devkit")
+    label = "train driver"
+    write_devkit(devkit, TRAIN_PAIRS, TRAIN_VAL_PAIRS, dev, card, label)
+    out = os.path.join(PHASE9_DIR, "output")
+    cfg = train_driver_config(devkit, out)
+    classes = list(cfg.dataset.class_name)
+    b, n_inner = cfg.TRAIN.BATCH_PAIRS, cfg.network.TRAIN_ITER_SIZE
+
+    # One render's plan at the driver's config and batch, and csr_raster
+    # held against its twin there.
+    bank = build_mesh_bank(cfg)
+    ecfg = EngineConfig.from_config(cfg, train=True, bank_arrays=bank)
+    _, recs = load_gt_pairdb(cfg, "LM6D_REFINE", "train_sphere", "sphere", devkit, devkit)
+    m = MeshBuffers.gather(bank, np.full(b, classes.index("sphere")), device=dev)
+    plan = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid,
+                         torch.from_numpy(np.stack([r["pose_rendered"] for r in recs[:b]])),
+                         torch.from_numpy(cfg.dataset.intrinsic_matrix()), ecfg.raster, corners=m.corners,
+                         corner_colors=m.corner_colors, device=dev)
+    if {name for name, _ in plan} != {"csr_raster"}:
+        raise AssertionError(f"{label}: a render plans {[name for name, _ in plan]}")
+    kernel = check_kernel("csr_raster", plan[0][1], card, shape=label)
+
+    warm = train_driver_config(devkit, out, end_epoch=1, model_prefix="warmup")
+    warm = update_config_dict(warm, {"dataset": {"dataset": "LM6D_REFINE", "image_set": "train_"}})
+    t0 = time.perf_counter()
+    train_net(warm, output_dir=os.path.join(out, "warm-up"), device=dev)
+    warm_s = time.perf_counter() - t0
+
+    init = build_model(cfg, device="cpu").state_dict()
+    train_dir = os.path.join(out, "train")
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = train_net(cfg, output_dir=train_dir, device=dev, init_state_dict=init)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    steps = TRAIN_EPOCHS * len(classes) * 2 * TRAIN_PAIRS // b
+    expect = len(plan) * n_inner * steps
+    if counts != {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": 0}:
+        raise AssertionError(f"{label}: launches {counts}, want csr_raster {expect} ({len(plan)} a render x "
+                             f"{n_inner} inner iterations x {steps} steps) and nothing else")
+    epochs = state.epochs
+    if [e["epoch"] for e in epochs] != list(range(1, TRAIN_EPOCHS + 1)):
+        raise AssertionError(f"{label}: epochs logged {epochs}")
+    for e in epochs:
+        if e["nonfinite_losses"] or e["raster_dropped"]:
+            raise AssertionError(f"{label}: epoch {e['epoch']}: {e['nonfinite_losses']} non-finite loss values, "
+                                 f"{e['raster_dropped']} dropped face-tile pairs")
+    if state.step != steps * n_inner or state.optimizer.count != steps * n_inner:
+        raise AssertionError(f"{label}: {state.step} iterations, {state.optimizer.count} updates, want "
+                             f"{steps * n_inner}")
+    params = state.model.state_dict()
+    still = [k for k, v in init.items() if torch.equal(v, params[k].cpu())]
+    if still or not all(bool(torch.isfinite(v).all()) for v in params.values()):
+        raise AssertionError(f"{label}: parameters not moved {still} or not finite")
+    prefix = os.path.join(train_dir, cfg.TRAIN.model_prefix)
+    missing = [e for e in range(1, TRAIN_EPOCHS + 1) if not os.path.isfile(checkpoint_path(prefix, e))]
+    if missing:
+        raise AssertionError(f"{label}: no checkpoint for epochs {missing}")
+
+    t0 = time.perf_counter()
+    handed = test_deepim(cfg, output_dir=os.path.join(out, "test_model"), batch_size=EVAL_B, device=dev,
+                         model=state.model)
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    loaded = test_deepim(cfg, output_dir=train_dir, batch_size=EVAL_B, device=dev)
+    n_iter = cfg.TEST.test_iter
+    check_tables(label, handed, classes, n_iter)
+    for (_, cls, it, row), (_, _, _, row2) in zip(_table_rows(handed, classes, n_iter),
+                                                  _table_rows(loaded, classes, n_iter)):
+        if any(not np.array_equal(np.asarray(row[k]), np.asarray(row2[k])) for k in row):
+            raise AssertionError(f"{label}: tables from model= and from the checkpoint differ ({cls} iter {it + 1})")
+
+    tb = TBLogger(os.path.join(PHASE9_DIR, "tb_probe"), enabled=cfg.TRAIN.TENSORBOARD_LOG)
+    tb_active = tb.enabled
+    tb.close()
+    for e in epochs:
+        log(f"[{label}] epoch {e['epoch']}: {e['samples']} samples in {e['loop_s']:.3f} s, "
+            f"{e['samples'] / e['loop_s']:.2f} samples/s with the data path ({b} pairs x {n_inner} inner "
+            f"iterations a step); blocked on the loader {e['wait_s']:.3f} s, in train steps {e['step_s']:.3f} s; "
+            f"decode cache {e['cache_hits']} hits, {e['cache_misses']} misses; checkpoint {e['checkpoint_s']:.3f} s "
+            f"[{card}]")
+    run = handed["run"]
+    log(f"[{label}] train_net {TRAIN_EPOCHS} epochs at {H}x{W}, {steps} steps: {wall:.3f} s in all (warm-up call "
+        f"{warm_s:.3f} s); launches {counts} (planned {len(plan)} a render); TensorBoard "
+        f"{'active' if tb_active else 'not active (no tensorboard package)'}; every loss finite, 0 dropped pairs, "
+        f"every parameter moved; checkpoints for epochs 1-{TRAIN_EPOCHS} [{card}]")
+    log(f"[{label}] test_deepim(model=): {run['pairs']} pairs, {run['pairs'] / (run['data_s'] + run['net_s']):.2f} "
+        f"frames/s over pred_eval's loop (data {run['data_s']:.3f} s + net {run['net_s']:.3f} s), the call "
+        f"{test_s:.3f} s; equal tables from the epoch-{TRAIN_EPOCHS} checkpoint [{card}]")
     kernel["launches"] = counts["csr_raster"]
     return kernel
 
@@ -845,12 +1025,15 @@ def main() -> int:
     render_comparison(csr_scene, dev, card)
 
     # 7. Small-input reference checks.
-    shutil.rmtree(PHASE8_DIR, ignore_errors=True)
+    for d in (PHASE8_DIR, PHASE9_DIR):
+        shutil.rmtree(d, ignore_errors=True)
     small_reference_checks(dev)
     small_driver_check(dev)
+    small_train_driver_check(dev)
 
-    # 8. The eval driver through its front door.
+    # 8. The eval driver through its front door; 9. the training driver.
     driver = drive_eval_driver(dev, card)
+    trainer = drive_train_driver(dev, card)
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
@@ -861,12 +1044,13 @@ def main() -> int:
             "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             # tile_raster's second shape (the heavy dense scene) and csr_raster's
-            # at the eval driver's render (with its launches there) ride on
-            # their entries.
+            # at the eval and training drivers' renders (with its launches
+            # there) ride on their entries.
             **({f"heavy_{key}": heavy[key] for key in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
                                                        "bound_by")} if name == "tile_raster" else {}),
-            **({f"driver_{key}": driver[key] for key in ("launches", "max_abs_err", "ms", "call_ms", "plain_ms",
-                                                         "bound_ms", "bound_by")} if name == "csr_raster" else {}),
+            **({f"{tag}_{key}": run[key] for tag, run in (("driver", driver), ("train_driver", trainer))
+                for key in ("launches", "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
+               if name == "csr_raster" else {}),
         }
         for name, r in results.items()
     ]

@@ -1,4 +1,4 @@
-from deepim_tpu_torch.data.loader import TestLoader
+from deepim_tpu_torch.data.loader import TestLoader, TrainLoader
 from deepim_tpu_torch.data.pairdb import (
     LM_CLASSES,
     LM_IDX2CLASS,
@@ -8,5 +8,5 @@ from deepim_tpu_torch.data.pairdb import (
     merge_pairdb,
 )
 
-__all__ = ["TestLoader", "LM_CLASSES", "LM_IDX2CLASS", "SYMMETRIC_CLASSES", "PairDB",
+__all__ = ["TestLoader", "TrainLoader", "LM_CLASSES", "LM_IDX2CLASS", "SYMMETRIC_CLASSES", "PairDB",
            "load_gt_pairdb", "merge_pairdb"]

@@ -1,31 +1,78 @@
-"""Host-side test-sample preprocessing: image, depth and mask loading,
-the observed-mask strategies and random mask dilation (the test half of
-deepim_tpu/data/preprocess.py; its train half, make_train_sample,
-VOCBackgrounds and sample_model_points, comes with the training driver).
+"""Host-side sample preprocessing (counterpart of
+deepim_tpu/data/preprocess.py): image, depth and mask loading, the
+observed-mask strategies, random mask dilation, VOC background
+substitution, model-point sampling, and the training and test samples.
 
 Images are RGB float32 [0, 255], NCHW per sample; PNGs are decoded by
 utils/png.py, which returns RGB directly.  Rendered colour images are not
 loaded: the engine re-renders from pose_rendered.  resize_to acts only
-when the devkit's resolution differs from SCALES; it resamples with
-torch's bilinear interpolation (align_corners=False, no antialiasing),
-cv2.resize's INTER_LINEAR rule, on float32 arrays.
+when the devkit's resolution differs from SCALES; it samples where
+cv2.resize(fx=scale, fy=scale, INTER_LINEAR) samples, on float32 arrays.
 """
 from __future__ import annotations
 
+import os
 import random
+import threading
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from deepim_tpu_torch.config import Config
 from deepim_tpu_torch.utils.png import read_png
 
 
+class DecodeCache:
+    """In-memory cache of decoded and resized arrays, keyed by (kind, path,
+    ...).  Decoded records are immutable inputs (every augmentation
+    downstream allocates fresh arrays), so caching them across epochs is
+    exact: epoch 2 on pays only augmentation and stacking.
+
+    Entries are inserted until `budget_mb` is reached, then the cache stops
+    growing (no eviction: each epoch is a reshuffle, so LRU would thrash).
+    The loader's workers share one cache: a lock guards the table and the
+    counters (not the decode), so two workers that miss on one key both
+    decode it and the first one's array is kept.
+    """
+
+    def __init__(self, budget_mb: int = 4096):
+        self.data: dict = {}
+        self.budget = budget_mb * (1 << 20)
+        self.bytes = 0
+        self.hits = 0
+        self.misses = 0
+        self._lock = threading.Lock()
+
+    def get(self, key, fn):
+        with self._lock:
+            out = self.data.get(key)
+            if out is not None:
+                self.hits += 1
+                return out
+            self.misses += 1
+        out = fn()
+        with self._lock:
+            if key not in self.data and self.bytes + out.nbytes <= self.budget:
+                # Entries are shared by reference: frozen, so an in-place
+                # edit raises instead of corrupting every later epoch.
+                out.flags.writeable = False
+                self.data[key] = out
+                self.bytes += out.nbytes
+        return out
+
+
+def _cached(cache: DecodeCache | None, key, fn):
+    return fn() if cache is None else cache.get(key, fn)
+
+
 def resize_to(im: np.ndarray, target_size: int, max_size: int) -> tuple[np.ndarray, float]:
     """Scale so the short side == target_size, capped by max_size on the long
-    side; output sizes round as cv2.resize rounds them.  Returns (image,
-    scale); the image itself when the scale is 1."""
+    side.  Samples as cv2.resize(fx=scale, fy=scale) does: the output is
+    round(h * scale) x round(w * scale) and output pixel x reads the input
+    at (x + 0.5) / scale - 0.5, bilinearly (align_corners=False).  Sizing
+    by the output size instead (F.interpolate(size=...)) maps pixels by
+    in / out, which differs from 1 / scale whenever the size was rounded.
+    Returns (image, scale); the image itself when the scale is 1."""
     h, w = im.shape[:2]
     short, long_ = min(h, w), max(h, w)
     scale = float(target_size) / short
@@ -35,8 +82,8 @@ def resize_to(im: np.ndarray, target_size: int, max_size: int) -> tuple[np.ndarr
         return im, 1.0
     x = torch.from_numpy(np.ascontiguousarray(im, np.float32))
     x = x[None, None] if x.ndim == 2 else x.permute(2, 0, 1)[None]
-    out = F.interpolate(x, size=(int(round(h * scale)), int(round(w * scale))), mode="bilinear",
-                        align_corners=False, antialias=False)[0]
+    out = torch.ops.aten.upsample_bilinear2d(x, [int(round(h * scale)), int(round(w * scale))], False,
+                                             scale, scale)[0]
     out = out[0] if im.ndim == 2 else out.permute(1, 2, 0)
     return out.numpy(), scale
 
@@ -108,6 +155,125 @@ def mask_dilate_np(mask: np.ndarray, rng: random.Random, max_thickness: int = 10
     if direction not in (0, 3, 7):
         expand(mask, rng.randrange(max_thickness) + 1, 1, -1)
     return np.clip(out, 0, 1)
+
+
+class VOCBackgrounds:
+    """VOC2012 background pool for synthetic observed images
+    (lib/utils/image.py:97-155): the image ids listed with label 1 in
+    <root_path>/VOCdevkit/VOC2012/ImageSets/Main/diningtable_trainval.txt.
+    An empty or missing list makes replace_background a no-op, as on a
+    tools/synth_data devkit.  The backgrounds are JPEGs, and the port has no
+    JPEG decoder yet (ROADMAP A10), so replacing with a non-empty list
+    raises."""
+
+    def __init__(self, root_path: str):
+        self.voc_root = os.path.join(root_path, "VOCdevkit/VOC2012")
+        list_path = os.path.join(self.voc_root, "ImageSets/Main/diningtable_trainval.txt")
+        self.bg_list: list[str] = []
+        if os.path.exists(list_path):
+            with open(list_path) as f:
+                for line in f:
+                    parts = line.strip().split()
+                    if len(parts) == 2 and parts[1] == "1":
+                        self.bg_list.append(parts[0])
+
+    def replace_background(self, im_observed: np.ndarray, fg_mask: np.ndarray, rng: random.Random) -> np.ndarray:
+        if not self.bg_list:
+            return im_observed
+        raise NotImplementedError(
+            f"{self.voc_root} lists {len(self.bg_list)} VOC backgrounds, which are JPEGs; the port has no "
+            "JPEG decoder yet (ROADMAP A10: a numpy baseline-JPEG decoder).  Remove the list to train "
+            "without background substitution.")
+
+
+def sample_model_points(points: np.ndarray, num_sample: int, rng: np.random.RandomState):
+    """Random NUM_3D_SAMPLE point subset, zero-padded, with weights
+    (lib/utils/image.py:452-478)."""
+    n = points.shape[0]
+    keep = min(n, num_sample)
+    idx = rng.permutation(n)[:keep]
+    out = np.zeros((num_sample, 3), np.float32)
+    out[:keep] = points[idx]
+    weights = np.zeros((num_sample,), np.float32)
+    weights[:keep] = 1.0
+    return out, weights
+
+
+def make_train_sample(
+    pair_rec: dict,
+    cfg: Config,
+    points: np.ndarray,
+    rng: random.Random,
+    nprng: np.random.RandomState,
+    voc: VOCBackgrounds | None = None,
+    cache: DecodeCache | None = None,
+) -> dict[str, np.ndarray]:
+    """Build one training sample (numpy, NCHW) from a pair record: the
+    observed image, the TRAIN.INIT_MASK observed mask (then MASK_DILATE),
+    the gt mask and depth, both poses and, with SE3_PM_LOSS, sampled model
+    points.  The rendered side and the labels that depend on it are made on
+    the device by the training step.  `cache` memoizes the pure decode and
+    resize stage across epochs; every augmentation stays per call.
+
+    The random draws happen in the JAX package's order and under its
+    conditions, so equal generators give equal samples: rng.random() only
+    for a pair that is not data_syn when `voc` is given and
+    REPLACE_OBSERVED_BG_RATIO > 0, then replace_background's draws, then
+    mask_dilate_np's; nprng only for the point sample."""
+    ts_ms = tuple(cfg.SCALES[0])
+    im_obs = _cached(
+        cache, ("img", pair_rec["image_observed"], ts_ms),
+        lambda: resize_to(load_image_rgb(pair_rec["image_observed"]), *ts_ms)[0],
+    )
+    mask_src = pair_rec.get("mask_gt_observed") or pair_rec["depth_gt_observed"]
+    mask_gt = _cached(
+        cache, ("maskgt_raw", mask_src, pair_rec.get("mask_idx")),
+        lambda: load_gt_observed_mask(pair_rec, cfg.dataset.DEPTH_FACTOR),
+    )
+    if pair_rec.get("data_syn", False) or (
+        voc is not None and cfg.TRAIN.REPLACE_OBSERVED_BG_RATIO > 0
+        and rng.random() < cfg.TRAIN.REPLACE_OBSERVED_BG_RATIO
+    ):
+        if voc is not None:
+            im_obs = voc.replace_background(im_obs, mask_gt, rng)
+
+    mask_gt_r = _cached(
+        cache, ("maskgt", mask_src, pair_rec.get("mask_idx"), ts_ms),
+        lambda: (resize_to(mask_gt, *ts_ms)[0] >= 0.5).astype(np.float32),
+    )
+
+    def depth(key: str) -> np.ndarray:
+        return _cached(cache, ("depth", pair_rec[key], ts_ms),
+                       lambda: resize_to(load_depth(pair_rec[key], cfg.dataset.DEPTH_FACTOR), *ts_ms)[0])
+
+    # INIT_MASK strategy (image.py:263-292).
+    init = cfg.TRAIN.INIT_MASK
+    if init == "mask_gt":
+        mask_obs = mask_gt_r.copy()
+    elif init == "box_gt":
+        mask_obs = box_mask_from(mask_gt_r)
+    elif init == "box_rendered":
+        mask_obs = box_mask_from((depth("depth_rendered") > 0.2).astype(np.float32))
+    else:
+        raise ValueError(f"Unknown INIT_MASK {init}")
+    if cfg.TRAIN.MASK_DILATE:
+        mask_obs = mask_dilate_np(mask_obs, rng)
+
+    sample = {
+        "image_observed": im_obs.transpose(2, 0, 1),  # (3, H, W) raw RGB
+        "mask_observed": mask_obs[None],
+        "mask_gt_observed": mask_gt_r[None],
+        "depth_gt_observed": depth("depth_gt_observed"),
+        "pose_rendered": np.asarray(pair_rec["pose_rendered"], np.float32),
+        "pose_observed": np.asarray(pair_rec["pose_observed"], np.float32),
+        "class_index": np.int32(0),  # filled by the loader (class-name table)
+    }
+    if cfg.network.INPUT_DEPTH:
+        sample["depth_observed"] = depth("depth_observed")[None]
+    if cfg.train_iter.SE3_PM_LOSS:
+        sample["points_model"], sample["points_weights"] = sample_model_points(
+            points, cfg.train_iter.NUM_3D_SAMPLE, nprng)
+    return sample
 
 
 def make_test_sample(

@@ -3,7 +3,7 @@ model's state_dict, the optimizer's state and the step (the naming of
 deepim_tpu/engine/checkpoint.py, written with torch.save instead of
 orbax).  Files are read with torch.load(weights_only=True).  The JAX
 package's orbax checkpoints (a directory per epoch) are not read yet
-(ROADMAP A12).
+(ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ def read_checkpoint(prefix: str, epoch: int) -> dict:
     path = checkpoint_path(prefix, epoch)
     if os.path.isdir(path):
         raise NotImplementedError(f"{path} is a directory (an orbax checkpoint of the JAX package); "
-                                  "reading those is not ported yet (ROADMAP A12)")
+                                  "reading those is not ported yet (ROADMAP A10)")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

@@ -74,7 +74,7 @@ class EngineConfig:
         """Build from a Config.  Pass the mesh bank (`bank_arrays`, as
         MeshBuffers.gather takes it) so the CSR pair budget is sized from
         the bank's face geometry (tune_raster_for_bank), as every driver
-        does.  The image zoom stays float32 (bf16 is ROADMAP A5)."""
+        does.  The image zoom stays float32 (bf16 is ROADMAP A2)."""
         ecfg = EngineConfig(
             height=cfg.height,
             width=cfg.width,

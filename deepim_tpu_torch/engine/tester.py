@@ -99,7 +99,7 @@ def _device_batch(batch: dict, bank, dev):
     return meshes, obs, torch.from_numpy(safe_pose0).to(dev), sentinel
 
 
-def _bank_on(bank_arrays, dev):
+def bank_on_device(bank_arrays, dev):
     """build_mesh_bank's four arrays as tensors on dev (gathered there per
     batch)."""
     return tuple(torch.as_tensor(a).to(dev) for a in bank_arrays)
@@ -117,7 +117,7 @@ def eval_flow_epe(cfg: Config, model, class_dbs: list, bank_arrays, batch_size: 
     ecfg = EngineConfig.from_config(cfg, train=False, bank_arrays=bank_arrays)
     nf = float(cfg.dataset.NORMALIZE_FLOW)
     n_iter = max(1, cfg.TEST.test_iter)
-    bank = _bank_on(bank_arrays, dev)
+    bank = bank_on_device(bank_arrays, dev)
     sums = [dict(epe_all=0.0, num_all=0.0, epe_viz=0.0, num_viz=0.0, epe_vizbg=0.0, num_vizbg=0.0)
             for _ in range(n_iter)]
     for db, pairdb in class_dbs:
@@ -207,7 +207,7 @@ def pred_eval(cfg: Config, model, class_dbs: list, bank_arrays, output_dir: str,
     else:
         all_poses_est = [[[] for _ in range(num_iters)] for _ in all_classes]
         all_poses_gt = [[[] for _ in range(num_iters)] for _ in all_classes]
-        bank = _bank_on(bank_arrays, dev)
+        bank = bank_on_device(bank_arrays, dev)
         t_data = t_net = 0.0
         n_pairs = n_dropped = 0
         for db, pairdb in class_dbs:

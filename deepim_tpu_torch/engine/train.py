@@ -12,7 +12,7 @@ kernel is forward only, as in the JAX package.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
@@ -121,11 +121,13 @@ def make_optimizer(params, tcfg: TrainConfig, schedule) -> Optimizer:
 class TrainState:
     """The JAX TrainState's (params, opt_state, step): the model holds the
     parameters, the optimizer its state, and step counts inner iterations
-    run (each one update, applied or skipped)."""
+    run (each one update, applied or skipped).  `epochs` holds the figures
+    tools/train_net.train_net records for each epoch it ran."""
 
     model: torch.nn.Module
     optimizer: Optimizer
     step: int = 0
+    epochs: list[dict] = field(default_factory=list)
 
 
 def flow_weights_from_valid(valid, weight_type: str, depth_src):

@@ -41,26 +41,29 @@ def _eval_model(cfg: Config, init_from: FlowNetDeepIM | None = None) -> FlowNetD
 
 
 def test_deepim(cfg: Config, output_dir: str | None = None, batch_size: int = 16,
-                device="cuda") -> dict:
-    """Evaluate cfg's model on cfg.dataset.test_image_set.  The weights come
-    from <output_dir>/<model_prefix>_ckpt/<test_epoch>; when that file does
-    not exist the fixed-seed initial weights are used, with a warning.  A
-    checkpoint that exists but does not fit the model raises.  When the
+                device="cuda", model: FlowNetDeepIM | None = None) -> dict:
+    """Evaluate cfg's model on cfg.dataset.test_image_set.  The weights are
+    those of `model` when given (no checkpoint is read); else they come
+    from <output_dir>/<model_prefix>_ckpt/<test_epoch>, and when that file
+    does not exist the fixed-seed initial weights are used, with a warning.
+    A checkpoint that exists but does not fit the model raises.  When the
     refinement ran, results['run'] (see pred_eval) also holds the host
     seconds of the stages before it: 'model_s' (network and checkpoint),
     'bank_s' (mesh bank) and 'pairdb_s' (pair lists), and 'pred_eval_s'."""
     dev = resolve_device(device)
     if cfg.dataset.dataset.startswith("ModelNet"):
-        raise NotImplementedError("ModelNet evaluation (test_modelnet) is not ported yet (ROADMAP A12)")
+        raise NotImplementedError("ModelNet evaluation (test_modelnet) is not ported yet (ROADMAP A10)")
     if cfg.TEST.VIS_VIDEO:
-        raise NotImplementedError("TEST.VIS_VIDEO (refinement videos) is not ported yet (ROADMAP A12)")
+        raise NotImplementedError("TEST.VIS_VIDEO (refinement videos) is not ported yet (ROADMAP A10)")
     if output_dir is None:
         output_dir = create_logger(cfg.output_path, cfg.TRAIN.model_prefix, cfg.dataset.test_image_set)
     stages = {}
     t0 = time.perf_counter()
     prefix = os.path.join(output_dir, cfg.TRAIN.model_prefix)
     path = checkpoint_path(prefix, cfg.TEST.test_epoch)
-    if os.path.exists(path):
+    if model is not None:
+        eval_model = _eval_model(cfg, init_from=model)
+    elif os.path.exists(path):
         eval_model = _eval_model(cfg)
         # The full model's entries that the eval model drops may be in the
         # checkpoint; every entry the eval model has must be.

@@ -3,7 +3,8 @@ render/mesh.py loaders, tools/synth_data.py) with the JAX package's and
 with cv2 on the CPU, on a 64x64 LINEMOD-layout devkit written by the JAX
 package's generate_dataset.  Tolerances: PNG decode, pair records,
 test samples and loader batches exact; resize_to against cv2.resize
-to 1e-5 of the value range (the same bilinear rule in float32, cv2's
+to 1e-5 of the value range where the scale maps sizes exactly, 1e-4 where
+the output size is rounded (the same bilinear rule in float32, cv2's
 weights rounded otherwise); meshes to 1e-6; the port's generated devkit within 1 level
 of colour and depth with equal hit masks (renders agree to rgb 5e-3 and
 depth 1e-5 before the truncation to integers)."""
@@ -202,6 +203,30 @@ def test_resize_to_matches_cv2(target):
         np.testing.assert_allclose(got, ref, atol=1e-5 * float(arr.max()), rtol=0)
     same, s = t_pre.resize_to(img, 64, 64)
     assert s == 1.0 and same is img
+
+
+@pytest.mark.parametrize("shape,target", [((481, 641), (480, 640)), ((240, 321), (479, 640)),
+                                          ((100, 133), (480, 638))])
+def test_resize_to_matches_cv2_rounded_sizes(shape, target):
+    """resize_to where round(size * scale) is not size * scale: cv2 maps
+    output pixel x to (x + 0.5) / scale - 0.5, not by the ratio of the two
+    sizes.  A random image, a smooth one and a 0/1 ellipse mask within
+    1e-4 of each one's range (measured: 4.8e-5, 1.4e-6 and 4.5e-5 at
+    481x641), and the mask thresholded at 0.5 equal pixel for pixel."""
+    h, w = shape
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    smooth = 127 + 100 * np.sin(xx / 17) * np.cos(yy / 23)
+    arrays = {
+        "random": (np.random.RandomState(0).rand(h, w, 3) * 255).astype(np.float32),
+        "smooth": np.repeat(smooth[:, :, None], 3, axis=2).astype(np.float32),
+        "mask": (((xx - w / 2) / (w / 3)) ** 2 + ((yy - h / 2) / (h / 3)) ** 2 < 1).astype(np.float32),
+    }
+    for name, arr in arrays.items():
+        got, s = t_pre.resize_to(arr, *target)
+        ref, s_ref = j_pre.resize_to(arr, *target)
+        assert s == s_ref and got.shape == ref.shape and got.dtype == ref.dtype, name
+        np.testing.assert_allclose(got, ref, atol=1e-4 * float(arr.max() - arr.min()), rtol=0, err_msg=name)
+    np.testing.assert_array_equal(got >= 0.5, ref >= 0.5)
 
 
 # -- pair records, samples, loader ---------------------------------------------
