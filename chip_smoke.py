@@ -5,8 +5,9 @@
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device and build: the card's name and power limit, torch's CUDA
-     version and TF32 settings (both set off: the port's numbers are fp32),
-     and the nvcc build of csrc/raster.cu;
+     version and the precision flags (set_explicit_precision: TF32 off,
+     bf16 matmuls reduced in fp32, as every entry point sets them), and the
+     nvcc build of csrc/raster.cu;
   2. each raster kernel against its plain PyTorch twin on the card, on the
      kernel inputs of one render of its path's scene (480x640; 20,480-face
      icospheres, batch 16 for csr_raster and batch 4 for csr_planes_raster;
@@ -27,22 +28,31 @@ Phases (each raises on failure; the script then exits non-zero):
   3. the main path on the CSR kernel: refine(), 4 iterations, batch 16,
      20,480-face meshes, FAST_TEST network (encoder + SE(3) head), seeded
      random weights with a small nonzero translation head, one warm-up and
-     five chained calls;
+     three chained calls, in each precision in turns (fp32 with TF32 off;
+     TF32 as torch's defaults give it, cuDNN TF32 and cuBLAS fp32; bf16
+     network and image zoom, the drivers' default on the card: fp32, tf32,
+     bf16, bf16, tf32, fp32);
   4. the main path on the dense kernel: the 320-face scene, batch 2, the
-     full network (flow and mask heads), the same protocol;
+     full network (flow and mask heads) in fp32, one warm-up and five
+     chained calls;
   5. the training path on csr_planes_raster (planes64): make_train_step
      at 480x640, batch 4, 4 inner iterations, the full network with seeded
      random weights, the lm6d_ape_iter4_8epoch recipe's losses and SGD
-     (plus global-norm clipping, see RECIPE_TCFG); one warm-up and five
-     timed steps;
+     (plus global-norm clipping, see RECIPE_TCFG); one warm-up and three
+     timed steps in each precision, in phase 3's turns;
   6. where one call's (or step's) device time goes on each path
      (torch.profiler: time by kernel family, the device's idle share, the
-     top kernels), and one batch-16 CSR render timed with slots8 and with
-     planes64;
+     top kernels; the eval call and the training step in each precision,
+     the convolutions beside their FLOP bound), and one batch-16 CSR render
+     timed with slots8 and with planes64;
   7. small-input reference checks: the card's renders, refinement and
      training step equal the CPU path (the one the tests hold to the JAX
      package), and so do the eval driver (pred_eval) and one epoch of the
-     training driver (train_net, same initial weights) on 64x64 devkits;
+     training driver (train_net, same initial weights) on 64x64 devkits:
+     each in fp32 (TF32 off) and again in bf16 (network and image zoom bf16
+     on both sides), and a 2-iteration refine with each engine option
+     (box_observed, two per-class EULER head groups, input_depth,
+     input_mask=False) in fp32;
   8. the eval driver through its front door: tools/synth_data.py writes a
      480x640 LINEMOD-layout devkit (LINEMOD intrinsics; classes "cube", a
      0.08 m cube, and "sphere", a 20,480-face icosphere of radius 0.05 m;
@@ -53,7 +63,8 @@ Phases (each raises on failure; the script then exits non-zero):
      YAML reader, its dataset paths, classes and test set overridden; a
      seeded checkpoint is saved with save_checkpoint; test_deepim runs at
      batch 16 once to warm up and once timed into a fresh directory
-     (csr_raster, and nothing else, launched exactly the planned number of
+     (bf16 eval network and image zoom, the driver's default; csr_raster,
+     and nothing else, launched exactly the planned number of
      times, every table finite, no dropped pairs), then once more on the
      cached results_pose.pkl (no launch); it prints frames/s over
      pred_eval's loop (32 batches), the loop's data/net split, the call's
@@ -67,20 +78,28 @@ Phases (each raises on failure; the script then exits non-zero):
      TEST.test_epoch 2; its LM6D_REFINE+LM6D_REFINE_SYN sets make an epoch of
      128 pairs (half data_syn), 32 steps of batch 4 x 4 inner iterations.
      A one-epoch warm-up on the real set alone, then train_net timed from
-     seeded weights (csr_raster, and nothing else, launched exactly the
+     seeded weights (bf16 network and image zoom, the driver's default;
+     csr_raster, and nothing else, launched exactly the
      planned number of times; every loss finite, no dropped pair, every
      parameter moved, checkpoints for epochs 1 and 2), then test_deepim on
      the trained network (model=) and from the epoch-2 checkpoint, with
      equal tables.  It prints samples/s per epoch with the data path, the
      loop's time blocked on the loader beside its time in train steps, the
      decode cache's hits and misses, the checkpoint seconds, whether
-     TensorBoard logs, and the test's frames/s.
+     TensorBoard logs, and the test's frames/s;
+ 10. the engine's options at full width: refine at 480x640, batch 4, 4
+     iterations, the full bf16 network on the 20,480-face CSR scene, once
+     with box_observed masks, two per-class EULER head groups and depth
+     input channels, once with input_mask=False (no mask channels, the zoom
+     from the image foregrounds): finite orthonormal poses, csr_raster
+     launched the planned number of times and nothing else.
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -100,6 +119,7 @@ import torch  # noqa: E402
 from deepim_tpu_torch.config import Config, TrainConfig, TrainIterConfig, load_config  # noqa: E402
 from deepim_tpu_torch.config import update_config_dict, validate_config  # noqa: E402
 from deepim_tpu_torch.data.pairdb import load_gt_pairdb  # noqa: E402
+from deepim_tpu_torch.device import set_explicit_precision  # noqa: E402
 from deepim_tpu_torch.engine import (  # noqa: E402
     TrainState,
     lr_steps_from_config,
@@ -112,13 +132,15 @@ from deepim_tpu_torch.engine.refine import EngineConfig, MeshBuffers, Observatio
 from deepim_tpu_torch.engine.refine import tune_raster_for_bank  # noqa: E402
 from deepim_tpu_torch.engine.tester import pred_eval  # noqa: E402
 from deepim_tpu_torch.engine.scene import LINEMOD_K, build_scene, train_batch  # noqa: E402
-from deepim_tpu_torch.models.flownet import FlowNetDeepIM  # noqa: E402
+from deepim_tpu_torch.models.flownet import _ENCODER, FlowNetDeepIM, conv_out  # noqa: E402
 from deepim_tpu_torch.ops.masks import box_fill  # noqa: E402
 from deepim_tpu_torch.render import raster_kernels as rk  # noqa: E402
 from deepim_tpu_torch.render.mesh import MeshBank, make_icosphere, make_test_cube  # noqa: E402
 from deepim_tpu_torch.render.rasterizer import KERNELS, RasterConfig, kernel_inputs, rasterize  # noqa: E402
 from deepim_tpu_torch.render.stress import stress_tile_list, stress_work_list  # noqa: E402
 from deepim_tpu_torch.tools.synth_data import generate_dataset  # noqa: E402
+from deepim_tpu_torch.tools import test_net as test_net_mod  # noqa: E402
+from deepim_tpu_torch.tools import train_net as train_net_mod  # noqa: E402
 from deepim_tpu_torch.tools.test_net import test_deepim  # noqa: E402
 from deepim_tpu_torch.tools.timing import graph_launch_ms  # noqa: E402
 from deepim_tpu_torch.tools.train_net import build_mesh_bank, build_model, train_net  # noqa: E402
@@ -127,6 +149,15 @@ from deepim_tpu_torch.utils.tb import TBLogger  # noqa: E402
 
 H, W = 480, 640
 N_CALLS = 5
+N_TURN_CALLS = 3      # timed calls (or steps) of each precision turn in phases 3 and 5
+# Precision modes: (network dtype, image zoom dtype, cuDNN TF32).  "tf32" is
+# what torch's defaults give an fp32 network (cuDNN TF32, cuBLAS fp32: the
+# CLIs before they set the flags); "bf16" is the drivers' default on the card.
+PRECISIONS = {"fp32": (torch.float32, "float32", False), "tf32": (torch.float32, "float32", True),
+              "bf16": (torch.bfloat16, "bfloat16", False)}
+TURNS = ("fp32", "tf32", "bf16", "bf16", "tf32", "fp32")
+# Dense peaks of NVIDIA's H100 SXM data sheet for the convolution bound.
+PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 # Bound model (NVIDIA's H100 SXM data sheet): device memory at
 # 3.35 TB/s, fp32 outside the tensor cores at 67 TFLOP/s.  A face-pixel
 # evaluation is 22 fp32 operations (2 subtractions for dx/dy, 3 edge planes
@@ -344,20 +375,74 @@ def check_launches(label: str, counts: dict, expect: str, least: int) -> None:
         raise AssertionError(f"{label}: other raster kernels launched on this path: {other}")
 
 
-def make_model(pred_heads: bool, seed: int, dev, hw=(H, W)) -> FlowNetDeepIM:
-    """Seeded random weights; a small nonzero translation head so the
-    refined poses move."""
+def make_model(pred_heads: bool, seed: int, dev, hw=(H, W), dtype=torch.float32, **net) -> FlowNetDeepIM:
+    """Seeded random weights (equal for every dtype); a small nonzero
+    translation head so the refined poses move (and, for an EULER head,
+    which starts at zero, a small nonzero rotation head)."""
     g = torch.Generator().manual_seed(seed)
-    model = FlowNetDeepIM(input_hw=hw, pred_flow=pred_heads, pred_mask=pred_heads, generator=g,
-                          device=dev)
+    model = FlowNetDeepIM(input_hw=hw, pred_flow=pred_heads, pred_mask=pred_heads, dtype=dtype, generator=g,
+                          device=dev, **net)
     with torch.no_grad():
         model.trans.weight.copy_(torch.randn(model.trans.weight.shape, generator=g) * 1e-3)
+        if model.rot_dim == 3:
+            model.rot.weight.copy_(torch.randn(model.rot.weight.shape, generator=g) * 1e-3)
     return model.eval()
 
 
-def drive_main_path(label: str, scene, model, dev, card: str, expect: str, min_per_call: int) -> dict:
+@contextlib.contextmanager
+def precision(mode: str):
+    """The flags of a PRECISIONS mode (cuDNN TF32 on for "tf32" only), and
+    set_explicit_precision's again after."""
+    set_explicit_precision()
+    torch.backends.cudnn.allow_tf32 = PRECISIONS[mode][2]
+    try:
+        yield
+    finally:
+        set_explicit_precision()
+
+
+def with_zoom(ecfg, mode: str):
+    return dataclasses.replace(ecfg, zoom_dtype=PRECISIONS[mode][1])
+
+
+def conv_flops(hw, in_ch: int, full: bool) -> tuple[float, float]:
+    """Forward operations (2 per multiply-add) of one sample through the
+    network's convolutions and transposed convolutions (the latter over
+    their whole output, before the crop), and those of flow_conv1 alone
+    (the one layer whose input gradient training does not need)."""
+    h, w = hw
+    sizes, total = {}, 0.0
+    for name, cin, cout, k, s, p in _ENCODER:
+        ho, wo = conv_out(h, k, s, p), conv_out(w, k, s, p)
+        total += 2.0 * (cin or in_ch) * cout * k * k * ho * wo
+        sizes[name], (h, w) = (ho, wo), (ho, wo)
+    first = 2.0 * in_ch * 64 * 49 * sizes["flow_conv1"][0] * sizes["flow_conv1"][1]
+    if full:
+        (h6, w6), (h5, w5), (h4, w4) = sizes["conv6_1"], sizes["conv5_1"], sizes["conv4_1"]
+        total += 2.0 * 1024 * 2 * 9 * h6 * w6                 # Convolution1
+        total += 2.0 * (1024 * 512 + 2 * 2) * 16 * h6 * w6    # deconv5, upsample_flow6to5
+        total += 2.0 * 1026 * 2 * 9 * h5 * w5                 # Convolution2
+        total += 2.0 * (1026 * 256 + 2 * 2) * 16 * h5 * w5    # deconv4, upsample_flow5to4
+        total += 2.0 * 770 * 3 * 9 * h4 * w4                  # Convolution3, mask_conv3
+    return total, first
+
+
+def conv_bound_ms(mode: str, hw, in_ch: int, full: bool, samples: int, train: bool) -> tuple[float, float]:
+    """(operations, least ms) of the convolution family for `samples`
+    sample-iterations at the card's dense peak for the mode; training adds
+    each layer's input and weight gradients (twice the forward), less
+    flow_conv1's input gradient."""
+    fwd, first = conv_flops(hw, in_ch, full)
+    ops = (3 * fwd - first if train else fwd) * samples
+    return ops, ops / PEAK_OPS_PER_S[mode] * 1e3
+
+
+def drive_main_path(label: str, scene, model, dev, card: str, expect: str, min_per_call: int, ecfg=None,
+                    n_calls: int = N_CALLS) -> dict:
     """Chained refine() calls with the launch counters zeroed just before
-    and read just after; checks poses and which kernel ran."""
+    and read just after; checks poses and which kernel ran.  Returns the
+    launch counts and the timed calls' median ms."""
+    ecfg = scene.ecfg if ecfg is None else ecfg
     k = torch.from_numpy(LINEMOD_K).to(dev)
     obs = Observation(scene.image, box_fill(scene.mask), None, None, k)
     b = scene.image.shape[0]
@@ -365,16 +450,16 @@ def drive_main_path(label: str, scene, model, dev, card: str, expect: str, min_p
     poses, times, dropped = [pose], [], []
     torch.cuda.synchronize()
     rk.reset_launch_counts()
-    for i in range(1 + N_CALLS):  # call 0 is the warm-up
+    for i in range(1 + n_calls):  # call 0 is the warm-up
         t0 = time.perf_counter()
-        pose, _, stats = refine(model, obs, scene.meshes, pose, scene.ecfg, with_stats=True, device=dev)
+        pose, _, stats = refine(model, obs, scene.meshes, pose, ecfg, with_stats=True, device=dev)
         torch.cuda.synchronize()
         if i:
             times.append(time.perf_counter() - t0)
         poses.append(pose)
         dropped.append(stats["raster_dropped"])
     counts = launch_counts()
-    check_launches(label, counts, expect, min_per_call * (1 + N_CALLS))
+    check_launches(label, counts, expect, min_per_call * (1 + n_calls))
     stack = torch.stack(poses).cpu().numpy()
     if not np.isfinite(stack).all():
         raise AssertionError(f"{label}: non-finite poses")
@@ -390,10 +475,10 @@ def drive_main_path(label: str, scene, model, dev, card: str, expect: str, min_p
         raise AssertionError(f"{label}: CSR binning dropped {n_drop} face-tile pairs")
     ms = [t * 1e3 for t in times]
     mean_s = sum(times) / len(times)
-    log(f"[{label}] refine x{scene.ecfg.num_iters} iters, batch {b}: {statistics.median(ms):.2f} ms/call median "
+    log(f"[{label}] refine x{ecfg.num_iters} iters, batch {b}: {statistics.median(ms):.2f} ms/call median "
         f"(min {min(ms):.2f}, max {max(ms):.2f}), {b / mean_s:.2f} frames/s; launches {counts}; "
         f"orthonormality err {orth:.2g}; min pose delta {min(deltas):.3g} [{card}]")
-    return counts
+    return {"counts": counts, "ms": statistics.median(ms), "frames_s": b / mean_s}
 
 
 _FAMILIES = (
@@ -405,17 +490,19 @@ _FAMILIES = (
 )
 
 
-def refine_call(scene, model, dev):
+def refine_call(scene, model, dev, ecfg=None):
     """A closure running one refine() call of the scene."""
+    ecfg = scene.ecfg if ecfg is None else ecfg
     k = torch.from_numpy(LINEMOD_K).to(dev)
     obs = Observation(scene.image, box_fill(scene.mask), None, None, k)
     pose = torch.from_numpy(scene.pose0).to(dev)
-    return lambda: refine(model, obs, scene.meshes, pose, scene.ecfg, device=dev)
+    return lambda: refine(model, obs, scene.meshes, pose, ecfg, device=dev)
 
 
-def breakdown(label: str, fn, card: str) -> None:
+def breakdown(label: str, fn, card: str) -> dict:
     """Device time of one fn() call by kernel family (torch.profiler), the
-    device's idle share of the call's wall time, and the top kernels."""
+    device's idle share of the call's wall time, and the top kernels.
+    Returns the families' device ms, 'busy' and 'wall'."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -448,6 +535,7 @@ def breakdown(label: str, fn, card: str) -> None:
         f"{busy / 1e3:.2f} ms (idle share {1 - busy / wall_us:.3f}); {shares} [{card}]")
     for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[{label} breakdown]   {us / 1e3:8.3f} ms  {key[:110]}")
+    return {**{n: us / 1e3 for n, us in fam.items()}, "busy": busy / 1e3, "wall": wall_us / 1e3}
 
 
 def recipe_optimizer(model):
@@ -472,20 +560,21 @@ def train_setup(dev):
     return sc, ecfg, train_batch(sc, LINEMOD_K, RECIPE_TICFG.NUM_3D_SAMPLE)
 
 
-def drive_train(sc, ecfg, batch, dev, card: str) -> dict:
-    """One warm-up and N_CALLS timed train steps with the launch counters
-    zeroed just before and read just after; checks losses, updates, the
-    update count, dropped pairs and which raster kernel ran."""
-    model = make_model(True, 2, dev, hw=(ecfg.height, ecfg.width))
+def drive_train(sc, ecfg, batch, dev, card: str, mode: str = "fp32", n_steps: int = N_CALLS) -> dict:
+    """One warm-up and n_steps timed train steps of a `mode` network (see
+    PRECISIONS) with the launch counters zeroed just before and read just
+    after; checks losses, updates, the update count, dropped pairs and
+    which raster kernel ran."""
+    model = make_model(True, 2, dev, hw=(ecfg.height, ecfg.width), dtype=PRECISIONS[mode][0])
     state = TrainState(model, recipe_optimizer(model))
-    step = make_train_step(ecfg, RECIPE_TICFG, RECIPE_TCFG.FLOW_WEIGHT_TYPE, device=dev)
+    step = make_train_step(with_zoom(ecfg, mode), RECIPE_TICFG, RECIPE_TCFG.FLOW_WEIGHT_TYPE, device=dev)
     before = [p.detach().clone() for p in model.parameters()]
-    label = "training path, planes64 (20,480-face meshes, full network, batch 4 x 4 inner)"
+    label = f"training path {mode}, planes64 (20,480-face meshes, full network, batch 4 x 4 inner)"
     history, times = [], []
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     rk.reset_launch_counts()
-    for i in range(1 + N_CALLS):  # step 0 is the warm-up
+    for i in range(1 + n_steps):  # step 0 is the warm-up
         t0 = time.perf_counter()
         state, metrics, _ = step(state, batch, sc.bank_arrays)
         torch.cuda.synchronize()
@@ -493,11 +582,11 @@ def drive_train(sc, ecfg, batch, dev, card: str) -> dict:
             times.append(time.perf_counter() - t0)
         history.append({k: v.cpu() for k, v in metrics.items()})
     counts = launch_counts()
-    n_updates = TRAIN_ITER_SIZE * (1 + N_CALLS)
+    n_updates = TRAIN_ITER_SIZE * (1 + n_steps)
     check_launches(label, counts, "csr_planes_raster", n_updates)
     for key in ("pm_loss", "flow_loss", "mask_loss", "total"):
         vals = torch.stack([h[key] for h in history])
-        if vals.shape != (1 + N_CALLS, TRAIN_ITER_SIZE) or not torch.isfinite(vals).all():
+        if vals.shape != (1 + n_steps, TRAIN_ITER_SIZE) or not torch.isfinite(vals).all():
             raise AssertionError(f"{label}: {key} not finite per inner iteration: {vals}")
     if state.step != n_updates or state.optimizer.count != n_updates:
         raise AssertionError(f"{label}: {state.step} iterations, {state.optimizer.count} updates, "
@@ -515,7 +604,8 @@ def drive_train(sc, ecfg, batch, dev, card: str) -> dict:
         f"{TRAIN_B * len(times) / sum(times):.2f} samples/s, {n_updates} updates; launches {counts}; "
         f"first losses {first}; last losses {last}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
-    return {"counts": counts, "step": lambda: step(state, batch, sc.bank_arrays)}
+    return {"counts": counts, "step": lambda: step(state, batch, sc.bank_arrays), "ms": statistics.median(ms),
+            "samples_s": TRAIN_B * len(times) / sum(times)}
 
 
 def render_comparison(scene, dev, card: str) -> None:
@@ -539,45 +629,129 @@ def render_comparison(scene, dev, card: str) -> None:
         f"per whole render (CUDA-event medians, two turns each); images equal [{card}]")
 
 
+K64 = np.array([[80.0, 0, 32.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
+# bf16 card-vs-CPU tolerance: cuDNN sums in another order than the CPU, so
+# bf16 roundings flip (as between the port and JAX on the CPU, where the
+# difference measured 0.3 to 1.7 times the JAX package's own
+# bf16-vs-fp32 gap, tests/test_torch_bf16.py); the card is held to this
+# many times the CPU's own bf16-vs-fp32 gap on the same inputs.
+BF16_GAP_FACTOR = 3.0
+
+
+@contextlib.contextmanager
+def driver_precision(mode: str):
+    """The drivers' networks and image zoom in a PRECISIONS mode on every
+    device, for the CPU-vs-card driver checks: the drivers build bf16
+    networks and zoom in bf16 on the card and float32 on the CPU, so
+    build_model's dtype, the eval network's dtype and from_config's zoom
+    dtype are replaced for the block."""
+    dtype, zoom, _ = PRECISIONS[mode]
+    build, eval_dtype, from_config = train_net_mod.build_model, test_net_mod.EVAL_DTYPE, EngineConfig.from_config
+    train_net_mod.build_model = lambda cfg, device="cuda": build(cfg, dtype=dtype, device=device)
+    test_net_mod.EVAL_DTYPE = dtype
+    EngineConfig.from_config = staticmethod(
+        lambda *a, **kw: dataclasses.replace(from_config(*a, **kw), zoom_dtype=zoom))
+    try:
+        yield
+    finally:
+        train_net_mod.build_model, test_net_mod.EVAL_DTYPE = build, eval_dtype
+        EngineConfig.from_config = staticmethod(from_config)
+
+
+def gap_ratio(card, cpu, cpu_f32) -> float:
+    """max |card - cpu| over the CPU's own bf16-vs-fp32 gap (max |cpu - cpu_f32|)."""
+    return float(np.abs(card - cpu).max()) / max(float(np.abs(cpu - cpu_f32).max()), 1e-12)
+
+
+def param_ratio(card: dict, cpu: dict, cpu_f32: dict, init: dict) -> tuple[float, str]:
+    """The worst tensor's bf16 card-vs-CPU parameter difference, less 4 ulp
+    of the tensor's magnitude, over the larger of the CPU's own bf16-vs-fp32
+    difference of that tensor and 1% of its fp32 update (a tensor whose
+    tiny update comes out the same in both precisions on the CPU has no
+    gap to measure against: the card one float32 ulp away would be an
+    infinite multiple of it)."""
+    worst = (0.0, "")
+    for k, ref in cpu.items():
+        ref, c = np.asarray(ref), np.asarray(card[k])
+        diff = float(np.abs(c - ref).max()) - 4 * float(np.spacing(np.float32(np.abs(ref).max())))
+        scale = max(float(np.abs(ref - np.asarray(cpu_f32[k])).max()),
+                    1e-2 * float(np.abs(np.asarray(cpu_f32[k]) - np.asarray(init[k])).max()), 1e-30)
+        worst = max(worst, (max(diff, 0.0) / scale, k))
+    return worst
+
+
 def train_reference_check(dev) -> None:
     """One 2-inner-iteration train step of the 64x64 scene on the card and
-    on the CPU, same weights: losses to rtol 1e-4, parameters to 1e-6 plus
-    1% of each tensor's update, final pose to 1e-5 (cuDNN sums in another
-    order than the CPU; TF32 is off)."""
-    k64 = np.array([[80.0, 0, 32.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
-    sc = build_scene(2, 64, 64, k64, num_iters=2, update_mask="box_gt", device="cpu")
-    batch = train_batch(sc, k64, 16)
+    on the CPU, same weights.  fp32: losses to rtol 1e-4, parameters to
+    1e-6 plus 1% of each tensor's update, final pose to 1e-5 (cuDNN sums in
+    another order than the CPU; TF32 is off).  bf16 (network and image zoom
+    on both sides): losses to rtol 1e-2, the pose within BF16_GAP_FACTOR
+    times the CPU's own bf16-vs-fp32 difference, and parameters within 4
+    ulp plus BF16_GAP_FACTOR times param_ratio's scale."""
+    sc = build_scene(2, 64, 64, K64, num_iters=2, update_mask="box_gt", device="cpu")
+    batch = train_batch(sc, K64, 16)
     ticfg = TrainIterConfig(SE3_PM_LOSS=True, LW_PM=0.1, NUM_3D_SAMPLE=16, LW_FLOW=0.25, LW_MASK=0.03)
     model0 = make_model(True, 5, "cpu", hw=(64, 64))
-    out = []
-    for d in ("cpu", dev):
-        model = make_model(True, 5, d, hw=(64, 64))
-        opt = make_optimizer(model.parameters(), TrainConfig(), warmup_multifactor_schedule(1e-3, (1000,)))
-        _, metrics, pose = make_train_step(sc.ecfg, ticfg, "viz", device=d)(TrainState(model, opt), batch,
-                                                                          sc.bank_arrays)
-        out.append(({k: v.cpu() for k, v in metrics.items()},
-                    {k: v.cpu() for k, v in model.state_dict().items()}, pose.cpu()))
-    (m_c, p_c, pose_c), (m_g, p_g, pose_g) = out
-    loss_err = max(float(((m_g[k] - m_c[k]) / m_c[k]).abs().max())
-                   for k in ("pm_loss", "flow_loss", "mask_loss", "total"))
-    p0 = model0.state_dict()
-    par_err = max(float((p_g[k] - p_c[k]).abs().max()) / (1e-6 + 1e-2 * float((p_c[k] - p0[k]).abs().max()))
+    out = {}
+    for mode in ("fp32", "bf16"):
+        for side, d in (("cpu", "cpu"), ("cuda", dev)):
+            model = make_model(True, 5, d, hw=(64, 64), dtype=PRECISIONS[mode][0])
+            opt = make_optimizer(model.parameters(), TrainConfig(), warmup_multifactor_schedule(1e-3, (1000,)))
+            step = make_train_step(with_zoom(sc.ecfg, mode), ticfg, "viz", device=d)
+            _, metrics, pose = step(TrainState(model, opt), batch, sc.bank_arrays)
+            out[mode, side] = ({k: v.cpu().numpy() for k, v in metrics.items()},
+                                               {k: v.cpu().numpy() for k, v in model.state_dict().items()},
+                                               pose.cpu().numpy())
+    p0 = {k: v.numpy() for k, v in model0.state_dict().items()}
+    keys = ("pm_loss", "flow_loss", "mask_loss", "total")
+    (m_c, p_c, pose_c), (m_g, p_g, pose_g) = out["fp32", "cpu"], out["fp32", "cuda"]
+    loss_err = max(float(np.abs((m_g[k] - m_c[k]) / m_c[k]).max()) for k in keys)
+    par_err = max(float(np.abs(p_g[k] - p_c[k]).max()) / (1e-6 + 1e-2 * float(np.abs(p_c[k] - p0[k]).max()))
                   for k in p_c)
-    pose_err = float((pose_g - pose_c).abs().max())
+    pose_err = float(np.abs(pose_g - pose_c).max())
     if loss_err > 1e-4 or par_err > 1.0 or pose_err > 1e-5:
         raise AssertionError(f"64x64 train step: card vs CPU loss rel err {loss_err}, parameter err "
                              f"{par_err} of its tolerance, pose err {pose_err}")
-    log(f"[reference] 64x64 train step, 2 inner iterations: card vs CPU loss rel err {loss_err:.3g}, "
+    log(f"[reference] 64x64 train step, 2 inner iterations, fp32: card vs CPU loss rel err {loss_err:.3g}, "
         f"parameter err {par_err:.3g} of tolerance, pose err {pose_err:.3g}")
+    (b_c, q_c, bpose_c), (b_g, q_g, bpose_g) = out["bf16", "cpu"], out["bf16", "cuda"]
+    loss_err = max(float(np.abs((b_g[k] - b_c[k]) / b_c[k]).max()) for k in keys)
+    par_ratio, worst = param_ratio(q_g, q_c, p_c, p0)
+    pose_ratio = gap_ratio(bpose_g, bpose_c, pose_c)
+    if not np.isfinite(b_g["total"]).all() or loss_err > 1e-2 or max(par_ratio, pose_ratio) > BF16_GAP_FACTOR:
+        raise AssertionError(f"64x64 train step bf16: card vs CPU loss rel err {loss_err}, parameters "
+                             f"{par_ratio} ({worst}) and pose {pose_ratio} of the CPU's bf16-vs-fp32 gap")
+    log(f"[reference] 64x64 train step, 2 inner iterations, bf16: card vs CPU loss rel err {loss_err:.3g}, "
+        f"parameters {par_ratio:.3g} ({worst}) and pose {pose_ratio:.3g} of the CPU's bf16-vs-fp32 gap (limit "
+        f"{BF16_GAP_FACTOR})")
+
+
+# Each engine option of the phase-7 and phase-10 checks: EngineConfig fields
+# and the network's input channels and heads.
+OPTION_SETS = {
+    "box_observed + 2 EULER head groups + input_depth": (
+        dict(update_mask="box_observed", rot_type="EULER", input_depth=True),
+        dict(in_channels=10, num_regressors=2, rot_dim=3)),
+    "input_mask=False": (dict(input_mask=False), dict(in_channels=6)),
+}
+
+
+def option_observation(sc, k):
+    """A scene's observation with everything the options read: observed
+    depth and class ids."""
+    return Observation(sc.image, box_fill(sc.mask), None, sc.depth, k,
+                       torch.from_numpy(sc.cls_idx).to(sc.image.device))
 
 
 def small_reference_checks(dev) -> None:
     """The card's path equals the CPU path on small inputs: renders of a
-    CSR (ico4, 96x128) and a dense (64x64) scene, and a 2-iteration refine
-    of the 64x64 scene with the same weights."""
+    CSR (ico4, 96x128) and a dense (64x64) scene; a 2-iteration refine of
+    the 64x64 scene with the same weights in fp32 (pose to 1e-4) and in
+    bf16 (network and image zoom; within BF16_GAP_FACTOR times the CPU's own
+    bf16-vs-fp32 pose gap); and a 2-iteration fp32 refine with each engine
+    option (pose to 1e-4)."""
     k96 = np.array([[150.0, 0, 64.0], [0, 150.0, 48.0], [0, 0, 1]], np.float32)
-    k64 = np.array([[80.0, 0, 32.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
-    for hw, kk, detail in (((96, 128), k96, 4), ((64, 64), k64, 2)):
+    for hw, kk, detail in (((96, 128), k96, 4), ((64, 64), K64, 2)):
         sc = build_scene(2, *hw, kk, num_iters=2, mesh_detail=detail, device="cpu")
         m = sc.meshes
         args = (m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(sc.pose0),
@@ -591,15 +765,34 @@ def small_reference_checks(dev) -> None:
         if d_err > 1e-5 or c_err > 5e-3:
             raise AssertionError(f"{hw}: card vs CPU depth {d_err}, rgb {c_err}")
         log(f"[reference] {hw} render (detail {detail}): card == CPU hit mask, depth err {d_err:.3g}, rgb err {c_err:.3g}")
-    sc = build_scene(2, 64, 64, k64, num_iters=2, device="cpu")
-    model = make_model(True, seed=5, dev="cpu", hw=(64, 64))
-    obs = Observation(sc.image, box_fill(sc.mask), None, None, torch.from_numpy(k64))
-    pose_c = refine(model, obs, sc.meshes, torch.from_numpy(sc.pose0), sc.ecfg, device="cpu")[1]
-    pose_g = refine(model.to(dev), obs, sc.meshes, torch.from_numpy(sc.pose0), sc.ecfg, device=dev)[1]
-    err = float((pose_g.cpu() - pose_c).abs().max())
-    if not torch.isfinite(pose_g).all() or err > 1e-4:
+    sc = build_scene(2, 64, 64, K64, num_iters=2, device="cpu")
+    obs = Observation(sc.image, box_fill(sc.mask), None, None, torch.from_numpy(K64))
+    poses = {}
+    for mode in ("fp32", "bf16"):
+        ecfg = with_zoom(sc.ecfg, mode)
+        for side, d in (("cpu", "cpu"), ("cuda", dev)):
+            model = make_model(True, seed=5, dev=d, hw=(64, 64), dtype=PRECISIONS[mode][0])
+            poses[mode, side] = refine(model, obs, sc.meshes, torch.from_numpy(sc.pose0), ecfg,
+                                                       device=d)[1].cpu().numpy()
+    err = float(np.abs(poses["fp32", "cuda"] - poses["fp32", "cpu"]).max())
+    if not np.isfinite(poses["fp32", "cuda"]).all() or err > 1e-4:
         raise AssertionError(f"64x64 refine: card vs CPU pose err {err}")
-    log(f"[reference] 64x64 refine, 2 iterations: card vs CPU pose err {err:.3g}")
+    ratio = gap_ratio(poses["bf16", "cuda"], poses["bf16", "cpu"], poses["fp32", "cpu"])
+    if not np.isfinite(poses["bf16", "cuda"]).all() or ratio > BF16_GAP_FACTOR:
+        raise AssertionError(f"64x64 refine bf16: card vs CPU pose diff {ratio} of the CPU's bf16-vs-fp32 gap")
+    log(f"[reference] 64x64 refine, 2 iterations: fp32 card vs CPU pose err {err:.3g}; bf16 card vs CPU pose "
+        f"diff {ratio:.3g} of the CPU's bf16-vs-fp32 gap (limit {BF16_GAP_FACTOR})")
+    for name, (fields, net) in OPTION_SETS.items():
+        sc = build_scene(2, 64, 64, K64, num_iters=2, update_mask=fields.get("update_mask", "box_rendered"),
+                         device="cpu")
+        ecfg = dataclasses.replace(sc.ecfg, **fields)
+        obs = option_observation(sc, torch.from_numpy(K64))
+        out = [refine(make_model(True, 8, d, hw=(64, 64), **net), obs, sc.meshes, torch.from_numpy(sc.pose0),
+                      ecfg, device=d)[1].cpu() for d in ("cpu", dev)]
+        err = float((out[1] - out[0]).abs().max())
+        if not torch.isfinite(out[1]).all() or err > 1e-4:
+            raise AssertionError(f"64x64 refine with {name}: card vs CPU pose err {err}")
+        log(f"[reference] 64x64 refine, 2 iterations, {name}, fp32: card vs CPU pose err {err:.3g}")
     train_reference_check(dev)
 
 
@@ -629,11 +822,12 @@ def check_tables(label: str, results: dict, classes, num_iters: int) -> None:
 def small_driver_check(dev) -> None:
     """pred_eval on a 64x64 devkit (a cube and an 80-face icosphere, dense
     tile_raster renders) on the card and on the CPU with the same FAST_TEST
-    weights: per-iteration poses to 2e-4, as the tests hold the CPU path to
-    the JAX package."""
+    weights: fp32 per-iteration poses to 2e-4, as the tests hold the CPU
+    path to the JAX package; bf16 (network and image zoom on both sides)
+    within BF16_GAP_FACTOR times the CPU's own bf16-vs-fp32 gap."""
     import pickle
 
-    k64 = np.array([[80.0, 0, 32.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
+    k64 = K64
     devkit = os.path.join(PHASE8_DIR, "devkit64")
     generate_dataset(devkit, {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 1)}, k64,
                      n_train=0, n_val=5, height=64, width=64, z_range=(0.45, 0.6),
@@ -649,19 +843,25 @@ def small_driver_check(dev) -> None:
     })
     dbs = [load_gt_pairdb(cfg, "LM6D_REFINE", f"val_{c}", c, devkit, devkit) for c in ("cube", "sphere")]
     bank = build_mesh_bank(cfg)
-    model = make_model(False, 6, "cpu", hw=(64, 64))
     poses = {}
-    for d in ("cpu", dev):
-        out = os.path.join(PHASE8_DIR, f"small_{torch.device(d).type}")
-        pred_eval(cfg, model.to(d), dbs, bank, out, batch_size=4, device=d)
-        with open(os.path.join(out, "results_pose.pkl"), "rb") as f:
-            poses[torch.device(d).type] = np.stack([np.stack(per_it) for per_cls in pickle.load(f)[0]
-                                                    for per_it in per_cls])
-    err = float(np.abs(poses["cuda"] - poses["cpu"]).max())
-    if not np.isfinite(poses["cuda"]).all() or err > 2e-4:
+    for mode in ("fp32", "bf16"):
+        model = make_model(False, 6, "cpu", hw=(64, 64), dtype=PRECISIONS[mode][0])
+        for side, d in (("cpu", "cpu"), ("cuda", dev)):
+            out = os.path.join(PHASE8_DIR, f"small_{mode}_{side}")
+            with driver_precision(mode):
+                pred_eval(cfg, model.to(d), dbs, bank, out, batch_size=4, device=d)
+            with open(os.path.join(out, "results_pose.pkl"), "rb") as f:
+                poses[mode, side] = np.stack([np.stack(per_it) for per_cls in pickle.load(f)[0]
+                                                              for per_it in per_cls])
+    err = float(np.abs(poses["fp32", "cuda"] - poses["fp32", "cpu"]).max())
+    if not np.isfinite(poses["fp32", "cuda"]).all() or err > 2e-4:
         raise AssertionError(f"64x64 eval driver: card vs CPU pose err {err}")
-    log(f"[reference] 64x64 eval driver (pred_eval, 2 classes x 5 pairs, 4 iterations): card vs CPU pose "
-        f"err {err:.3g}")
+    ratio = gap_ratio(poses["bf16", "cuda"], poses["bf16", "cpu"], poses["fp32", "cpu"])
+    if not np.isfinite(poses["bf16", "cuda"]).all() or ratio > BF16_GAP_FACTOR:
+        raise AssertionError(f"64x64 eval driver bf16: card vs CPU pose diff {ratio} of the CPU's bf16-vs-fp32 gap")
+    log(f"[reference] 64x64 eval driver (pred_eval, 2 classes x 5 pairs, 4 iterations): fp32 card vs CPU pose "
+        f"err {err:.3g}; bf16 card vs CPU pose diff {ratio:.3g} of the CPU's bf16-vs-fp32 gap (limit "
+        f"{BF16_GAP_FACTOR})")
 
 
 def small_train_driver_check(dev) -> None:
@@ -669,9 +869,10 @@ def small_train_driver_check(dev) -> None:
     icosphere, 4 training pairs a class read as LM6D_REFINE and as
     LM6D_REFINE_SYN: 4 steps of batch 4 x 2 inner iterations, dense
     tile_raster renders) on the card and on the CPU from the same initial
-    weights: every inner iteration's losses and the parameters after the
-    epoch to train_reference_check's tolerances."""
-    k64 = np.array([[80.0, 0, 32.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
+    weights, in fp32 and in bf16 (driver_precision): every inner
+    iteration's losses and the parameters after the epoch to
+    train_reference_check's tolerances (param_ratio for bf16)."""
+    k64 = K64
     devkit = os.path.join(PHASE9_DIR, "devkit64")
     generate_dataset(devkit, {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 1)}, k64,
                      n_train=4, n_val=0, height=64, width=64, z_range=(0.45, 0.6),
@@ -690,22 +891,35 @@ def small_train_driver_check(dev) -> None:
                   "UPDATE_MASK": "box_gt", "MASK_DILATE": True, "FLOW_WEIGHT_TYPE": "viz"},
     })
     init = make_model(True, 5, "cpu", hw=(64, 64)).state_dict()
-    runs = []
-    for i, d in enumerate(("cpu", dev)):
-        state = train_net(cfg, output_dir=os.path.join(PHASE9_DIR, f"small_{i}"), device=d, init_state_dict=init)
-        runs.append((state.epochs[0]["metrics"], {k: v.cpu() for k, v in state.model.state_dict().items()}))
-    (m_c, p_c), (m_g, p_g) = runs
+    runs = {}
+    for mode in ("fp32", "bf16"):
+        for side, d in (("cpu", "cpu"), ("cuda", dev)):
+            with driver_precision(mode):
+                state = train_net(cfg, output_dir=os.path.join(PHASE9_DIR, f"small_{mode}_{side}"),
+                                  device=d, init_state_dict=init)
+            runs[mode, side] = (state.epochs[0]["metrics"],
+                                                {k: v.cpu() for k, v in state.model.state_dict().items()})
+    (m_c, p_c), (m_g, p_g) = runs["fp32", "cpu"], runs["fp32", "cuda"]
     keys = ("pm_loss", "flow_loss", "mask_loss", "total")
-    if any(m_c[k].shape != (4, 2) or m_g[k].shape != (4, 2) or not np.isfinite(m_g[k]).all() for k in keys):
-        raise AssertionError(f"64x64 train_net: losses {m_c} on the CPU, {m_g} on the card")
+    for (m, _) in runs.values():
+        if any(m[k].shape != (4, 2) or not np.isfinite(m[k]).all() for k in keys):
+            raise AssertionError(f"64x64 train_net: losses {m}")
     loss_err = max(float((np.abs(m_g[k] - m_c[k]) / np.abs(m_c[k])).max()) for k in keys)
     par_err = max(float((p_g[k] - p_c[k]).abs().max()) / (1e-6 + 1e-2 * float((p_c[k] - init[k]).abs().max()))
                   for k in p_c)
     if loss_err > 1e-4 or par_err > 1.0:
         raise AssertionError(f"64x64 train_net epoch: card vs CPU loss rel err {loss_err}, parameter err "
                              f"{par_err} of its tolerance")
-    log(f"[reference] 64x64 train_net, one epoch (4 steps x 2 inner iterations): card vs CPU loss rel err "
-        f"{loss_err:.3g}, parameter err {par_err:.3g} of tolerance")
+    (b_c, q_c), (b_g, q_g) = runs["bf16", "cpu"], runs["bf16", "cuda"]
+    bf_loss_err = max(float((np.abs(b_g[k] - b_c[k]) / np.abs(b_c[k])).max()) for k in keys)
+    par_ratio, worst = param_ratio(q_g, q_c, p_c, init)
+    if bf_loss_err > 1e-2 or par_ratio > BF16_GAP_FACTOR:
+        raise AssertionError(f"64x64 train_net epoch bf16: card vs CPU loss rel err {bf_loss_err}, parameters "
+                             f"{par_ratio} ({worst}) of the CPU's bf16-vs-fp32 gap")
+    log(f"[reference] 64x64 train_net, one epoch (4 steps x 2 inner iterations): fp32 card vs CPU loss rel err "
+        f"{loss_err:.3g}, parameter err {par_err:.3g} of tolerance; bf16 card vs CPU loss rel err "
+        f"{bf_loss_err:.3g}, parameters {par_ratio:.3g} ({worst}) of the CPU's bf16-vs-fp32 gap (limit "
+        f"{BF16_GAP_FACTOR})")
 
 
 def write_devkit(devkit: str, n_train: int, n_val: int, dev, card: str, label: str) -> None:
@@ -949,6 +1163,46 @@ def drive_train_driver(dev, card: str) -> dict:
     return kernel
 
 
+def drive_options(dev, card: str) -> None:
+    """Phase 10 (see the module docstring): each OPTION_SETS entry once,
+    with the launch counters zeroed just before the refine and read just
+    after."""
+    k = torch.from_numpy(LINEMOD_K).to(dev)
+    for i, (name, (fields, net)) in enumerate(OPTION_SETS.items()):
+        label = f"options at {H}x{W}: {name}"
+        sc = build_scene(4, H, W, LINEMOD_K, num_iters=4, mesh_detail=5,
+                         update_mask=fields.get("update_mask", "box_rendered"), device=dev)
+        ecfg = dataclasses.replace(sc.ecfg, zoom_dtype="bfloat16", **fields)
+        model = make_model(True, 9 + i, dev, hw=(H, W), dtype=torch.bfloat16, **net)
+        m = sc.meshes
+        plan = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(sc.pose0), k,
+                             ecfg.raster, corners=m.corners, corner_colors=m.corner_colors, device=dev)
+        if {n for n, _ in plan} != {"csr_raster"}:
+            raise AssertionError(f"{label}: a render plans {[n for n, _ in plan]}")
+        expect = len(plan) * ecfg.num_iters
+        obs = option_observation(sc, k)
+        torch.cuda.synchronize()
+        rk.reset_launch_counts()
+        t0 = time.perf_counter()
+        final, poses, stats = refine(model, obs, sc.meshes, torch.from_numpy(sc.pose0), ecfg, with_stats=True,
+                                     device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if counts != {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": 0}:
+            raise AssertionError(f"{label}: launches {counts}, want csr_raster {expect} and nothing else")
+        poses = poses.cpu().numpy()
+        r = poses[..., :3]
+        orth = float(np.abs(r @ np.swapaxes(r, -1, -2) - np.eye(3)).max())
+        moved = float(np.abs(poses[-1] - sc.pose0).max())
+        if not np.isfinite(poses).all() or orth > 1e-4 or moved == 0.0 or int(stats["raster_dropped"]):
+            raise AssertionError(f"{label}: finite {np.isfinite(poses).all()}, orthonormality err {orth}, "
+                                 f"moved {moved}, dropped {int(stats['raster_dropped'])}")
+        log(f"[{label}] refine x{ecfg.num_iters} iters, batch 4, bf16 network ({net}) and zoom: {wall * 1e3:.2f} "
+            f"ms (first call, cold); launches {counts}; orthonormality err {orth:.2g}; pose moved {moved:.3g} "
+            f"[{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
@@ -960,11 +1214,13 @@ def main() -> int:
     # 1. Device and build.
     card = card_line()
     log(card)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}; "
-        f"tf32: cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
-        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    set_explicit_precision()
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, cuDNN {torch.backends.cudnn.version()}, device "
+        f"{torch.cuda.get_device_name(0)}; set_explicit_precision: "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+        f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+        f"allow_bf16_reduced_precision_reduction="
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     t0 = time.perf_counter()
     rk.load_library()
     log(f"[build] raster.cu: {time.perf_counter() - t0:.2f} s (nvcc {rk.BUILD_INFO['seconds']:.2f} s) [{card}]")
@@ -1007,21 +1263,44 @@ def main() -> int:
     log(f"[csr_planes_raster] equals csr_raster on the training render (hits, face ids, q, rgb) [{card}]")
     stress_check(card)
 
-    # 3./4. The eval main path on each raster kernel; 5. the training path.
-    csr_model, dense_model = make_model(False, 0, dev), make_model(True, 1, dev)
-    counts_csr = drive_main_path("main path, CSR (20,480-face meshes, FAST_TEST)", csr_scene,
-                                 csr_model, dev, card, "csr_raster", min_per_call=4 * 2)
+    # 3. The eval main path on the CSR kernel in each precision, in turns;
+    # 4. the dense kernel; 5. the training path in each precision, in turns.
+    csr_models = {m: make_model(False, 0, dev, dtype=PRECISIONS[m][0]) for m in PRECISIONS}
+    dense_model = make_model(True, 1, dev)
+    eval_runs = {m: [] for m in PRECISIONS}
+    train_runs = {m: [] for m in PRECISIONS}
+    for mode in TURNS:
+        with precision(mode):
+            eval_runs[mode].append(drive_main_path(
+                f"main path {mode}, CSR (20,480-face meshes, FAST_TEST)", csr_scene, csr_models[mode], dev, card,
+                "csr_raster", min_per_call=4 * 2, ecfg=with_zoom(csr_scene.ecfg, mode), n_calls=N_TURN_CALLS))
     counts_dense = drive_main_path("main path, dense (320-face meshes, full network)", dense_scene,
-                                   dense_model, dev, card, "tile_raster", min_per_call=4)
-    train = drive_train(train_scene, train_ecfg, batch, dev, card)
-    results["csr_raster"]["launches"] = counts_csr["csr_raster"]
+                                   dense_model, dev, card, "tile_raster", min_per_call=4)["counts"]
+    for mode in TURNS:
+        with precision(mode):
+            train_runs[mode].append(drive_train(train_scene, train_ecfg, batch, dev, card, mode, N_TURN_CALLS))
+    for name, runs, unit in (("eval CSR call", eval_runs, "frames_s"), ("training step", train_runs, "samples_s")):
+        log(f"[precision turns] {name}: " + "; ".join(
+            f"{m} {[round(r['ms'], 2) for r in rs]} ms, {[round(r[unit], 2) for r in rs]} {unit.replace('_', '/')}"
+            for m, rs in runs.items()) + f" (turns {TURNS}) [{card}]")
+    results["csr_raster"]["launches"] = eval_runs["bf16"][0]["counts"]["csr_raster"]
     results["tile_raster"]["launches"] = counts_dense["tile_raster"]
-    results["csr_planes_raster"]["launches"] = train["counts"]["csr_planes_raster"]
+    results["csr_planes_raster"]["launches"] = train_runs["bf16"][0]["counts"]["csr_planes_raster"]
 
-    # 6. Where the time goes.
-    breakdown("CSR path", refine_call(csr_scene, csr_model, dev), card)
+    # 6. Where the time goes, in each precision.
+    for mode in PRECISIONS:
+        with precision(mode):
+            for label, fn, train, samples in (
+                    ("CSR path", refine_call(csr_scene, csr_models[mode], dev, with_zoom(csr_scene.ecfg, mode)),
+                     False, 16 * 4),
+                    ("training step", train_runs[mode][-1]["step"], True, TRAIN_B * TRAIN_ITER_SIZE)):
+                fam = breakdown(f"{label} {mode}", fn, card)
+                ops, b_ms = conv_bound_ms(mode, (H, W), 8, train, samples, train)
+                log(f"[{label} {mode} convolutions] {fam['convolutions']:.2f} device ms against a bound of "
+                    f"{b_ms:.3f} ms ({ops / 1e12:.2f} TFLOP at {PEAK_OPS_PER_S[mode] / 1e12:.0f} TFLOP/s dense "
+                    f"{mode}: {fam['convolutions'] / b_ms:.1f}x); busy {fam['busy']:.2f} of {fam['wall']:.2f} ms "
+                    f"[{card}]")
     breakdown("dense path", refine_call(dense_scene, dense_model, dev), card)
-    breakdown("training step", train["step"], card)
     render_comparison(csr_scene, dev, card)
 
     # 7. Small-input reference checks.
@@ -1031,9 +1310,11 @@ def main() -> int:
     small_driver_check(dev)
     small_train_driver_check(dev)
 
-    # 8. The eval driver through its front door; 9. the training driver.
+    # 8. The eval driver through its front door; 9. the training driver;
+    # 10. the engine's options at full width.
     driver = drive_eval_driver(dev, card)
     trainer = drive_train_driver(dev, card)
+    drive_options(dev, card)
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 

@@ -1,4 +1,5 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution and numeric precision shared by every entry point of
+the port."""
 from __future__ import annotations
 
 import torch
@@ -16,3 +17,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "the plain PyTorch path" % (str(device),)
         )
     return dev
+
+
+def set_explicit_precision() -> None:
+    """Make the card compute in the dtype each tensor has, as the JAX
+    package does: float32 convolutions and matmuls in float32, not TF32
+    (cuDNN's default is TF32), and bfloat16 matmuls reduced in float32,
+    never partly in bfloat16 (cuBLAS may do that through split-K unless
+    told not to; fc6 reduces over 81,920 inputs).  Every entry point that
+    builds a network calls this; the flags are process-wide."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

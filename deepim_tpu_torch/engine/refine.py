@@ -7,10 +7,15 @@ mask, computes the zoom crop, runs the matching network on the zoomed
 is a Python loop over iterations (the JAX package's lax.scan).
 
 Mask strategies (update_mask): 'box_rendered' rebuilds the observed-mask
-rectangle from each iteration's render; 'init', 'box_gt' and 'mask_gt' keep
-the loader's observed mask.  Options outside this port so far
-('box_observed', input_depth, image-based zoom factors, texture sampling,
-bf16 zoom) raise NotImplementedError.
+rectangle from each iteration's render; 'box_observed' boxes the network's
+predicted mask of the previous iteration, inverse-zoomed to the full
+frame (the first iteration boxes the loader's mask); 'init', 'box_gt' and
+'mask_gt' keep the loader's observed mask.  Also supported: depth input
+channels (input_depth), the zoom factor from the image foregrounds
+(input_mask=False), per-class SE(3) heads selected by class_index (a
+network with num_regressors > 1) and Euler-angle rotation heads, and the
+image zoom in bf16 (zoom_dtype, bf16 on the card).  Texture sampling
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -27,7 +32,15 @@ from deepim_tpu_torch.device import resolve_device
 from deepim_tpu_torch.geometry.se3 import RT_transform
 from deepim_tpu_torch.models.flownet import assemble_input
 from deepim_tpu_torch.ops.masks import box_fill
-from deepim_tpu_torch.ops.zoom import zoom_factor_from_masks, zoom_images, zoom_masks, zoom_trans
+from deepim_tpu_torch.ops.zoom import (
+    zoom_depths,
+    zoom_factor_from_images,
+    zoom_factor_from_masks,
+    zoom_images,
+    zoom_mask,
+    zoom_masks,
+    zoom_trans,
+)
 from deepim_tpu_torch.render.rasterizer import (
     RasterConfig,
     expand_corners,
@@ -38,7 +51,7 @@ from deepim_tpu_torch.render.rasterizer import (
 
 log = logging.getLogger(__name__)
 
-_MASK_STRATEGIES = ("box_rendered", "init", "box_gt", "mask_gt")
+_MASK_STRATEGIES = ("box_rendered", "box_observed", "init", "box_gt", "mask_gt")
 
 
 @dataclass(frozen=True)
@@ -67,14 +80,19 @@ class EngineConfig:
     num_iters: int = 4
     texture_sampling: bool = False
     init_mask_host: bool = False
+    # Dtype of the image zoom ('float32' | 'bfloat16'); masks, depths and
+    # flow labels always zoom in float32.
     zoom_dtype: str = "float32"
 
     @staticmethod
-    def from_config(cfg: Config, train: bool = False, bank_arrays=None) -> "EngineConfig":
+    def from_config(cfg: Config, train: bool = False, bank_arrays=None,
+                    device="cuda") -> "EngineConfig":
         """Build from a Config.  Pass the mesh bank (`bank_arrays`, as
         MeshBuffers.gather takes it) so the CSR pair budget is sized from
         the bank's face geometry (tune_raster_for_bank), as every driver
-        does.  The image zoom stays float32 (bf16 is ROADMAP A2)."""
+        does.  The image zoom is bf16 on a CUDA `device` and float32 on the
+        CPU, as the JAX package picks bf16 on its accelerator and float32
+        on the CPU."""
         ecfg = EngineConfig(
             height=cfg.height,
             width=cfg.width,
@@ -96,25 +114,23 @@ class EngineConfig:
             num_iters=(cfg.network.TRAIN_ITER_SIZE if train else cfg.TEST.test_iter),
             init_mask_host=(not train) and cfg.TEST.MASK_DILATE,
             texture_sampling=cfg.dataset.TEXTURE_SAMPLING,
-            zoom_dtype="float32",
+            zoom_dtype="bfloat16" if torch.device(device).type == "cuda" else "float32",
         )
         if bank_arrays is not None:
             ecfg = tune_raster_for_bank(ecfg, bank_arrays, cfg.dataset.intrinsic_matrix())
         return ecfg
 
 
+_ZOOM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def _check_supported(ecfg: EngineConfig) -> None:
     if ecfg.update_mask not in _MASK_STRATEGIES:
         raise NotImplementedError(f"update_mask={ecfg.update_mask!r} is not ported yet")
-    unsupported = {
-        "input_depth": ecfg.input_depth,
-        "input_mask=False": not ecfg.input_mask,
-        "texture_sampling": ecfg.texture_sampling,
-        "zoom_dtype!=float32": ecfg.zoom_dtype != "float32",
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"EngineConfig options not ported yet: {bad}")
+    if ecfg.zoom_dtype not in _ZOOM_DTYPES:
+        raise ValueError(f"zoom_dtype must be one of {sorted(_ZOOM_DTYPES)}, got {ecfg.zoom_dtype!r}")
+    if ecfg.texture_sampling:
+        raise NotImplementedError("texture_sampling is not ported yet (ROADMAP A9)")
 
 
 def tune_raster_for_bank(ecfg: EngineConfig, bank_arrays, k=None,
@@ -256,9 +272,9 @@ class Observation(NamedTuple):
     image_observed: torch.Tensor             # (B, 3, H, W) RGB, raw [0, 255]
     mask_observed: torch.Tensor              # (B, 1, H, W)
     mask_gt_observed: torch.Tensor | None    # (B, 1, H, W); None at test time
-    depth_observed: torch.Tensor | None      # unused until input_depth is ported
+    depth_observed: torch.Tensor | None      # (B, 1, H, W) metres; read with input_depth
     k: torch.Tensor                          # (3, 3)
-    class_index: torch.Tensor | None = None  # (B,); selects SE(3) heads once REGRESSOR_NUM > 1 is ported
+    class_index: torch.Tensor | None = None  # (B,); selects the SE(3) heads of a num_regressors > 1 network
 
     def to(self, device) -> "Observation":
         return Observation(*(None if x is None else x.to(device) for x in self))
@@ -291,13 +307,18 @@ def render_at_pose(meshes: MeshBuffers, pose, k, ecfg: EngineConfig, with_stats:
 
 
 def refine_step(model, obs: Observation, meshes: MeshBuffers, pose, ecfg: EngineConfig,
-                iter_index: int | None = None, device="cuda"):
+                iter_index: int | None = None, mask_observed_state=None, device="cuda"):
     """One render -> zoom -> match -> update iteration.  Differentiable
     with respect to the model's parameters (the training losses call it
     with autograd on); the render and the zoom crop carry no gradient.
+    `mask_observed_state` is the observed mask carried between iterations
+    under update_mask='box_observed' (refine passes the previous
+    iteration's 'mask_pred_full'); None boxes the loader's mask.
 
     Returns (pose_new (B, 3, 4), aux dict with the network outputs, the zoom
-    factor, the rendered buffers and 'raster_dropped')."""
+    factor, the rendered buffers, 'raster_dropped' and, when the network has
+    a mask head, 'mask_pred_full': its sigmoid mask inverse-zoomed to the
+    full frame and binarised)."""
     _check_supported(ecfg)
     dev = resolve_device(device)
     obs, meshes, pose = obs.to(dev), meshes.to(dev), pose.to(dev)
@@ -313,22 +334,45 @@ def refine_step(model, obs: Observation, meshes: MeshBuffers, pose, ecfg: Engine
         mask_obs = box_fill(mask_rendered)
         if ecfg.init_mask_host and iter_index == 0:
             mask_obs = obs.mask_observed
+    elif ecfg.update_mask == "box_observed":
+        carried = obs.mask_observed if mask_observed_state is None else mask_observed_state.to(dev)
+        mask_obs = box_fill(carried)
     else:
         mask_obs = obs.mask_observed
     mask_gt_obs = obs.mask_gt_observed if obs.mask_gt_observed is not None else mask_obs
 
+    zdt = _ZOOM_DTYPES[ecfg.zoom_dtype]
     img_obs_norm = obs.image_observed - pm.reshape(1, 3, 1, 1)
     img_rend_norm = image_rendered - pm.reshape(1, 3, 1, 1)
-    zf = zoom_factor_from_masks(mask_obs, mask_gt_obs, mask_rendered, pose, k)
-    z_img_obs, z_img_rend = zoom_images(img_obs_norm, img_rend_norm, zf, pm)
-    z_mask_obs, z_mask_gt, z_mask_rend = zoom_masks(mask_obs, mask_gt_obs, mask_rendered, zf)
+    if ecfg.input_mask:
+        zf = zoom_factor_from_masks(mask_obs, mask_gt_obs, mask_rendered, pose, k)
+    else:
+        zf = zoom_factor_from_images(img_obs_norm, img_rend_norm, pose, k, pm)
+    z_img_obs, z_img_rend = zoom_images(img_obs_norm.to(zdt), img_rend_norm.to(zdt), zf, pm)
 
-    x = assemble_input(z_img_obs, z_img_rend, mask_observed=z_mask_obs, mask_rendered=z_mask_rend)
-    out = model(x)
+    inputs = {}
+    z_mask_gt = None
+    if ecfg.input_mask:
+        z_mask_obs, z_mask_gt, z_mask_rend = zoom_masks(mask_obs, mask_gt_obs, mask_rendered, zf)
+        inputs.update(mask_observed=z_mask_obs, mask_rendered=z_mask_rend)
+    if ecfg.input_depth:
+        z_d_obs, z_d_rend = zoom_depths(obs.depth_observed, depth_rendered, zf)
+        scale = 255.0 / ecfg.depth_factor_for_input
+        inputs.update(depth_observed=z_d_obs * scale, depth_rendered=z_d_rend * scale)
+    x = assemble_input(z_img_obs, z_img_rend, **inputs)
+    if getattr(model, "num_regressors", 1) > 1:
+        out = model(x, obs.class_index)
+    else:
+        out = model(x)
     trans = zoom_trans(out["trans"], zf.as_array(), True, False)
     pose_new = RT_transform(pose, out["rot"], trans, t_means, t_stds, ecfg.rot_coord)
+    mask_pred_full = None
+    if "mask_logit" in out:
+        mask_prob = torch.sigmoid(out["mask_logit"])
+        mask_pred_full = torch.round(zoom_mask(mask_prob, zf, binarize_input=True, inverse=True))
     aux = {
         "net": out,
+        "mask_pred_full": mask_pred_full,
         "raster_dropped": dropped,
         "rot": out["rot"],
         "trans": trans,
@@ -348,14 +392,20 @@ def refine(model, obs: Observation, meshes: MeshBuffers, pose0, ecfg: EngineConf
            num_iters: int | None = None, with_stats: bool = False, device="cuda"):
     """Iterative test-time refinement (no gradients).  Returns (pose_final
     (B, 3, 4), poses (num_iters, B, 3, 4)) and, with `with_stats`, a dict
-    {'raster_dropped': summed CSR truncated pairs over all iterations}."""
+    {'raster_dropped': summed CSR truncated pairs over all iterations}.
+    Under update_mask='box_observed' each iteration's predicted full-frame
+    mask becomes the next one's observed mask."""
     n = num_iters if num_iters is not None else ecfg.num_iters
     dev = resolve_device(device)
     obs, meshes, pose = obs.to(dev), meshes.to(dev), pose0.to(dev)
     poses, drops = [], []
+    mask_state = None
     with torch.no_grad():
         for it in range(n):
-            pose, aux = refine_step(model, obs, meshes, pose, ecfg, iter_index=it, device=dev)
+            pose, aux = refine_step(model, obs, meshes, pose, ecfg, iter_index=it,
+                                    mask_observed_state=mask_state, device=dev)
+            if ecfg.update_mask == "box_observed" and aux["mask_pred_full"] is not None:
+                mask_state = aux["mask_pred_full"]
             poses.append(pose)
             drops.append(aux["raster_dropped"])
     stacked = torch.stack(poses)

@@ -113,8 +113,9 @@ def build_scene(b: int, h: int, w: int, k_mat, num_iters: int, update_mask: str 
 
 def train_batch(scene: Scene, k_mat, num_3d_sample: int) -> TrainBatch:
     """The scene as one training batch, on the scene's device: box-filled
-    observed mask, the rendered mask as gt mask, its depth as gt depth,
-    pose0 as source and pose_gt as target pose.  points_model is each
+    observed mask, the rendered mask as gt mask, its depth as gt and as
+    observed depth (the input_depth channels), pose0 as source and pose_gt
+    as target pose.  points_model is each
     mesh's first num_3d_sample vertices, zero-padded with weight 0."""
     dev = scene.image.device
     b = scene.image.shape[0]
@@ -136,4 +137,5 @@ def train_batch(scene: Scene, k_mat, num_3d_sample: int) -> TrainBatch:
         points_model=points,
         points_weights=weights,
         k=torch.from_numpy(np.asarray(k_mat, np.float32)).to(dev),
+        depth_observed=scene.depth,
     )

@@ -114,7 +114,7 @@ def eval_flow_epe(cfg: Config, model, class_dbs: list, bank_arrays, batch_size: 
     over all pixels, visible pixels, and visible plus background pixels,
     per iteration ('per_iter') and for iteration 1 (the top-level keys)."""
     dev = resolve_device(device)
-    ecfg = EngineConfig.from_config(cfg, train=False, bank_arrays=bank_arrays)
+    ecfg = EngineConfig.from_config(cfg, train=False, bank_arrays=bank_arrays, device=dev)
     nf = float(cfg.dataset.NORMALIZE_FLOW)
     n_iter = max(1, cfg.TEST.test_iter)
     bank = bank_on_device(bank_arrays, dev)
@@ -194,7 +194,7 @@ def pred_eval(cfg: Config, model, class_dbs: list, bank_arrays, output_dir: str,
     (tables and curves) wall seconds, and the CSR face-tile pairs the
     raster budget dropped (0 for exact renders)."""
     dev = resolve_device(device)
-    ecfg = EngineConfig.from_config(cfg, train=False, bank_arrays=bank_arrays)
+    ecfg = EngineConfig.from_config(cfg, train=False, bank_arrays=bank_arrays, device=dev)
     num_iters = cfg.TEST.test_iter
     all_classes = list(class_dbs[0][0].classes)
     run = None

@@ -8,7 +8,11 @@ labels (calc_RT_delta, flow_from_depth), back-propagates, applies one
 optimizer update and carries the detached predicted pose (reset per sample
 to the previous one when it is non-finite or leaves (znear, zfar)) into
 the next iteration.  The renders are not differentiated: every raster
-kernel is forward only, as in the JAX package.
+kernel is forward only, as in the JAX package.  The network computes in its
+own dtype (bf16 from build_model) and hands float32 outputs to the losses,
+which, like the pose update and the zooms of masks, depths and flow
+labels, stay float32; gradients reach the float32 parameters through the
+network's casts.
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ class TrainBatch(NamedTuple):
     points_model: torch.Tensor       # (B, N, 3) model points, zero-padded
     points_weights: torch.Tensor     # (B, N) 1 for real points
     k: torch.Tensor                  # (3, 3)
-    depth_observed: torch.Tensor | None = None  # unused until input_depth is ported
+    depth_observed: torch.Tensor | None = None  # (B, 1, H, W) metres; read with input_depth
 
     def to(self, device) -> "TrainBatch":
         return TrainBatch(*(None if x is None else x.to(device) for x in self))

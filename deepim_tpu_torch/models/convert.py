@@ -8,7 +8,9 @@ convolutions as Conv_N/<name> and deconvolutions as
 
 * conv (kh, kw, in, out) -> (out, in, kh, kw);
 * Dense (in, out) -> (out, in); fc6 needs no row permutation because the
-  port flattens conv6_1 in the JAX order (H*W*C);
+  port flattens conv6_1 in the JAX order (H*W*C); the SE(3) heads of any
+  width (REGRESSOR_NUM groups of 4 or 3 rotation and 3 translation
+  outputs, group-major in both packages) bridge the same way;
 * flax ConvTranspose (padding VALID, no kernel transpose) is a correlation
   of the dilated input, while nn.ConvTranspose2d(k=4, s=2, p=0) is the
   adjoint of a convolution: the kernel is spatially flipped and laid out

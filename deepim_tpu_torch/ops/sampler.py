@@ -79,7 +79,13 @@ def affine_sample(img: torch.Tensor, zf: ZoomFactor, out_hw: tuple[int, int] | N
     """Resample img (B, C, H, W) through the zoom -> (B, C, H_out, W_out).
 
     Output pixel (i, j) samples normalized source coordinate
-    (wx gx + tx, wy gy + ty), g = (2j/(W_out-1) - 1, 2i/(H_out-1) - 1)."""
+    (wx gx + tx, wy gy + ty), g = (2j/(W_out-1) - 1, 2i/(H_out-1) - 1).
+    Positions and weights are built in float32 and the weight matrices
+    then rounded to img's dtype; both products run in float32 on those
+    operands (for a bf16 image: bf16 x bf16 with a float32 result, then
+    that float32 result times the bf16 weights, as JAX's
+    preferred_element_type gives) and the result is rounded to img's
+    dtype once, on the card as on the CPU."""
     b, c, h, w = img.shape
     ho, wo = out_hw if out_hw is not None else (h, w)
     f32 = torch.float32
@@ -89,8 +95,8 @@ def affine_sample(img: torch.Tensor, zf: ZoomFactor, out_hw: tuple[int, int] | N
     tx, ty = zf.tx.to(f32), zf.ty.to(f32)
     sx = (_fma32(wx[:, None], gx[None, :], tx[:, None]) + 1.0) * ((w - 1) * 0.5)
     sy = (_fma32(wy[:, None], gy[None, :], ty[:, None]) + 1.0) * ((h - 1) * 0.5)
-    wmat_x = _interp_weights(sx, w)  # (B, Wo, W)
-    wmat_y = _interp_weights(sy, h)  # (B, Ho, H)
+    wmat_x = _interp_weights(sx, w).to(img.dtype).to(f32)  # (B, Wo, W)
+    wmat_y = _interp_weights(sy, h).to(img.dtype).to(f32)  # (B, Ho, H)
     tmp = torch.einsum("bih,bchw->bciw", wmat_y, img.to(f32))
     out = torch.einsum("bciw,bjw->bcij", tmp, wmat_x)
     return out.to(img.dtype)

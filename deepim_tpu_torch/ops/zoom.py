@@ -3,7 +3,9 @@ deepim_tpu/ops/zoom.py).
 
 The crop is non-differentiable (the zoom factor is detached), except
 zoom_trans, which passes gradients through to the translation.  zoom_flow
-zooms the training flow labels and their weights.
+zooms the training flow labels and their weights.  Only the images may be
+zoomed in bf16 (EngineConfig.zoom_dtype); masks, depths and flow labels,
+and the foreground thresholds of zoom_factor_from_images, stay float32.
 """
 from __future__ import annotations
 
@@ -76,13 +78,31 @@ def zoom_factor_from_masks(mask_observed, mask_gt_observed, mask_rendered, src_p
     return _zoom_factor_from_boxes(mask_bbox(real), mask_bbox(rend), center, h, w)
 
 
+def zoom_factor_from_images(image_observed, image_rendered, src_pose, k, pixel_means) -> ZoomFactor:
+    """Zoom factor from the image foregrounds (the INPUT_MASK=False path):
+    foreground = channel sum of (image + mean) > 0.01, in float32.
+    Images: (B, 3, H, W) mean-subtracted; src_pose: (B, 3, 4); k: (3, 3)."""
+    _, _, h, w = image_observed.shape
+    pm = pixel_means.reshape(1, -1, 1, 1)
+    real = (image_observed + pm).sum(1) > 0.01
+    rend = (image_rendered + pm).sum(1) > 0.01
+    center = project_points(src_pose[:, :, 3], k)
+    return _zoom_factor_from_boxes(mask_bbox(real), mask_bbox(rend), center, h, w)
+
+
 def zoom_images(image_observed, image_rendered, zf: ZoomFactor, pixel_means):
     """Zoom a mean-subtracted image pair; means are added back before
-    sampling and removed after, so out-of-frame pixels end at -mean."""
+    sampling and removed after, so out-of-frame pixels end at -mean.  The
+    means take the images' dtype (bf16 for the bf16 zoom)."""
     pm = pixel_means.reshape(1, -1, 1, 1).to(image_observed.dtype)
     obs = affine_sample(image_observed + pm, zf) - pm
     rend = affine_sample(image_rendered + pm, zf) - pm
     return obs.detach(), rend.detach()
+
+
+def zoom_depths(depth_observed, depth_rendered, zf: ZoomFactor):
+    """Zoom a depth pair (B, 1, H, W); no gradient."""
+    return affine_sample(depth_observed, zf).detach(), affine_sample(depth_rendered, zf).detach()
 
 
 def zoom_mask(mask, zf: ZoomFactor, *, binarize_input: bool = True, inverse: bool = False):

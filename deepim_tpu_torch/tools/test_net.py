@@ -1,7 +1,8 @@
 """The test driver (counterpart of deepim_tpu/tools/test_net.py and
 experiments/deepim/deepim_test.py): load the config, restore the
-checkpoint of TEST.test_epoch, refine every pair of every test class and
-log the 5cm5deg, ADD(-S) and Proj2D tables.
+checkpoint of TEST.test_epoch into a bf16 network (as the JAX package's),
+refine every pair of every test class and log the 5cm5deg, ADD(-S) and
+Proj2D tables.
 
     python -m deepim_tpu_torch.tools.test_net --cfg <experiment.yaml> [--device cuda|cpu]
         [--batch-size 16]
@@ -14,27 +15,37 @@ import argparse
 import os
 import time
 
+import torch
+
 from deepim_tpu_torch.config import Config, load_config
 from deepim_tpu_torch.data.pairdb import load_gt_pairdb
-from deepim_tpu_torch.device import resolve_device
+from deepim_tpu_torch.device import resolve_device, set_explicit_precision
 from deepim_tpu_torch.engine.checkpoint import checkpoint_path, load_checkpoint
 from deepim_tpu_torch.engine.tester import eval_flow_epe, eval_precomputed_poses, pred_eval
 from deepim_tpu_torch.engine.train import TrainState
 from deepim_tpu_torch.models.flownet import FlowNetDeepIM
-from deepim_tpu_torch.tools.train_net import build_mesh_bank, build_model, input_channels
+from deepim_tpu_torch.tools.train_net import build_mesh_bank, build_model, input_channels, rot_dim
 from deepim_tpu_torch.utils.logger import create_logger, logger
 
 
+# The eval network's dtype: bf16, as the JAX test_deepim builds it (tests
+# that hold the driver to an fp32 JAX run patch this).
+EVAL_DTYPE = torch.bfloat16
+
+
 def _eval_model(cfg: Config, init_from: FlowNetDeepIM | None = None) -> FlowNetDeepIM:
-    """The eval model.  FAST_TEST drops the flow decoder and the mask head
-    when the test protocol does not use them.  Built on the meta device: its
-    weights come from a checkpoint or, given `init_from`, from that model."""
+    """The eval model, in EVAL_DTYPE.  FAST_TEST drops the flow
+    decoder and the mask head when the test protocol does not use them.
+    Built on the meta device: its weights come from a checkpoint or, given
+    `init_from`, from that model (any dtype: the weights are float32)."""
     keep_flow = cfg.network.PRED_FLOW and not cfg.TEST.FAST_TEST
     keep_mask = cfg.network.PRED_MASK and (
         cfg.TEST.UPDATE_MASK not in ("init", "box_rendered") or not cfg.TEST.FAST_TEST
     )
     model = FlowNetDeepIM(in_channels=input_channels(cfg), input_hw=(cfg.height, cfg.width),
-                          pred_flow=keep_flow, pred_mask=keep_mask, device="meta").eval()
+                          pred_flow=keep_flow, pred_mask=keep_mask,
+                          num_regressors=cfg.network.REGRESSOR_NUM, rot_dim=rot_dim(cfg),
+                          dtype=EVAL_DTYPE, device="meta").eval()
     if init_from is not None:
         model.load_state_dict(init_from.state_dict(), strict=False, assign=True)
     return model
@@ -49,8 +60,13 @@ def test_deepim(cfg: Config, output_dir: str | None = None, batch_size: int = 16
     A checkpoint that exists but does not fit the model raises.  When the
     refinement ran, results['run'] (see pred_eval) also holds the host
     seconds of the stages before it: 'model_s' (network and checkpoint),
-    'bank_s' (mesh bank) and 'pairdb_s' (pair lists), and 'pred_eval_s'."""
+    'bank_s' (mesh bank) and 'pairdb_s' (pair lists), and 'pred_eval_s'.
+
+    The eval network computes in EVAL_DTYPE (bf16, as the JAX test_deepim's)
+    whatever `model`'s dtype, and on CUDA the image zoom is bf16 too.  Precision on the card is set explicitly first
+    (set_explicit_precision: no TF32, bf16 matmuls reduced in float32)."""
     dev = resolve_device(device)
+    set_explicit_precision()
     if cfg.dataset.dataset.startswith("ModelNet"):
         raise NotImplementedError("ModelNet evaluation (test_modelnet) is not ported yet (ROADMAP A10)")
     if cfg.TEST.VIS_VIDEO:
@@ -107,6 +123,8 @@ test_deepim.__test__ = False  # not a pytest test
 
 
 def main(argv: list[str] | None = None) -> dict:
+    """The CLI: test_deepim on --cfg, which sets the card's precision
+    (set_explicit_precision) before it builds the bf16 eval network."""
     ap = argparse.ArgumentParser(description="Evaluate DeepIM (PyTorch port) on a test set")
     ap.add_argument("--cfg", required=True, help="experiment YAML file")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")

@@ -20,7 +20,7 @@ import torch
 from deepim_tpu_torch.config import Config, load_config
 from deepim_tpu_torch.data.loader import TrainLoader
 from deepim_tpu_torch.data.pairdb import load_gt_pairdb, merge_pairdb
-from deepim_tpu_torch.device import resolve_device
+from deepim_tpu_torch.device import resolve_device, set_explicit_precision
 from deepim_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
 from deepim_tpu_torch.engine.lr_schedule import lr_steps_from_config, warmup_multifactor_schedule
 from deepim_tpu_torch.engine.refine import EngineConfig
@@ -54,28 +54,30 @@ def build_mesh_bank(cfg: Config):
     Returns (vertices, colors, faces, face_valid) numpy arrays, the tuple
     MeshBuffers.gather takes."""
     if cfg.dataset.TEXTURE_SAMPLING:
-        raise NotImplementedError("dataset.TEXTURE_SAMPLING is not ported yet (ROADMAP A8)")
+        raise NotImplementedError("dataset.TEXTURE_SAMPLING is not ported yet (ROADMAP A9)")
     meshes = [load_textured_mesh(os.path.join(cfg.dataset.model_dir, cls))
               for cls in cfg.dataset.class_name]
     bank = MeshBank.from_meshes(meshes)
     return bank.vertices, bank.colors, bank.faces, bank.face_valid
 
 
-def build_model(cfg: Config, dtype=torch.float32, device="cuda") -> FlowNetDeepIM:
-    """The matching network for cfg at cfg's resolution with its heads, in
-    eval mode, its weights drawn from a fixed seed (0, as the JAX package
-    initialises from PRNGKey(0)).  float32 only until ROADMAP A2 (the JAX
-    package builds its networks in bf16)."""
-    if dtype != torch.float32:
-        raise NotImplementedError("only float32 networks are ported (bf16 is ROADMAP A2)")
-    if cfg.network.REGRESSOR_NUM > 1 or cfg.network.ROT_TYPE != "QUAT":
-        raise NotImplementedError("REGRESSOR_NUM > 1 and ROT_TYPE EULER are not ported yet "
-                                  "(ROADMAP A4)")
+def build_model(cfg: Config, dtype=torch.bfloat16, device="cuda") -> FlowNetDeepIM:
+    """The matching network for cfg at cfg's resolution with its heads
+    (REGRESSOR_NUM groups, a quaternion or EULER rotation head), in eval
+    mode, its float32 weights drawn from a fixed seed (0, as the JAX package
+    initialises from PRNGKey(0)).  It computes in `dtype`: bf16 by default,
+    as the JAX package's build_model; pass torch.float32 for an fp32
+    network."""
     return FlowNetDeepIM(
         in_channels=input_channels(cfg), input_hw=(cfg.height, cfg.width),
         pred_flow=cfg.network.PRED_FLOW, pred_mask=cfg.network.PRED_MASK,
+        num_regressors=cfg.network.REGRESSOR_NUM, rot_dim=rot_dim(cfg), dtype=dtype,
         generator=torch.Generator().manual_seed(0), device=resolve_device(device),
     ).eval()
+
+
+def rot_dim(cfg: Config) -> int:
+    return 3 if cfg.network.ROT_TYPE == "EULER" else 4
 
 
 def input_channels(cfg: Config) -> int:
@@ -108,8 +110,14 @@ def train_net(cfg: Config, output_dir: str | None = None, device="cuda",
     loader, its time in train steps, the checkpoint), the decode cache's
     hits and misses, non-finite loss values, dropped face-tile pairs, and
     `metrics`, every metric's value at each step and inner iteration
-    ({name: (steps, TRAIN_ITER_SIZE) array}, one copy after the loop)."""
+    ({name: (steps, TRAIN_ITER_SIZE) array}, one copy after the loop).
+
+    The network is build_model's bf16 one (a caller's `init_state_dict`
+    holds float32 weights either way).  Precision on the card is set
+    explicitly first (set_explicit_precision: no TF32, bf16 matmuls
+    reduced in float32)."""
     dev = resolve_device(device)
+    set_explicit_precision()
     if output_dir is None:
         output_dir = create_logger(cfg.output_path, cfg.TRAIN.model_prefix, cfg.dataset.image_set)
     dbs, pairdb = load_pairdbs(cfg)
@@ -139,7 +147,7 @@ def train_net(cfg: Config, output_dir: str | None = None, device="cuda",
         state = load_checkpoint(prefix, begin_epoch, state)
         logger.info("resumed from epoch %d (step %d)", begin_epoch, state.step)
 
-    ecfg = EngineConfig.from_config(cfg, train=True, bank_arrays=bank_arrays)
+    ecfg = EngineConfig.from_config(cfg, train=True, bank_arrays=bank_arrays, device=dev)
     step_fn = make_train_step(ecfg, cfg.train_iter, cfg.TRAIN.FLOW_WEIGHT_TYPE, device=dev)
     bank_d = bank_on_device(bank_arrays, dev)
     speedo = Speedometer(batch_size, frequent=20)
@@ -229,6 +237,8 @@ def _dump_batch_vis(batch, vis_dir: str, tag: str) -> None:
 
 
 def main(argv: list[str] | None = None) -> TrainState:
+    """The CLI: train_net on --cfg, which sets the card's precision
+    (set_explicit_precision) before it builds the bf16 network."""
     ap = argparse.ArgumentParser(description="Train DeepIM (PyTorch port)")
     ap.add_argument("--cfg", required=True, help="experiment YAML file")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")

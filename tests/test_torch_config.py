@@ -143,17 +143,23 @@ def test_class_name_file_and_scales(tmp_path):
 @pytest.mark.parametrize("train", [False, True])
 def test_engine_config_from_config_equals_jax(train):
     """EngineConfig.from_config with a bank (CSR 20,480-face sphere and a
-    cube) equals the JAX package's on the CPU, tuned CSR budget included."""
+    cube) for the CPU equals the JAX package's on the CPU, tuned CSR budget
+    and float32 image zoom included; for CUDA it differs only in its bf16
+    image zoom (the JAX package's accelerator choice)."""
     cfg_d = {"network": {"INPUT_MASK": True, "PRED_FLOW": True, "PRED_MASK": True, "TRAIN_ITER": True,
                          "TRAIN_ITER_SIZE": 3, "PIXEL_MEANS": [123.68, 116.779, 103.939]},
              "dataset": {"NORMALIZE_FLOW": 20.0, "trans_stds": [0.5, 0.5, 1.0]},
              "TEST": {"test_iter": 4, "MASK_DILATE": True}, "TRAIN": {"UPDATE_MASK": "box_gt"}}
     bank = JMeshBank.from_meshes([j_cube(0.08), j_icosphere(0.05, 5)])
     arrays = (bank.vertices, bank.colors, bank.faces, bank.face_valid)
-    t = EngineConfig.from_config(update_config_dict(Config(), cfg_d), train=train, bank_arrays=arrays)
+    t = EngineConfig.from_config(update_config_dict(Config(), cfg_d), train=train, bank_arrays=arrays,
+                                 device="cpu")
     j = JEngineConfig.from_config(j_update(JConfig(), cfg_d), train=train, bank_arrays=arrays)
     assert t.raster.csr_tiers and t.raster.bin_pairs
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    cuda = EngineConfig.from_config(update_config_dict(Config(), cfg_d), train=train, bank_arrays=arrays,
+                                    device="cuda")
+    assert cuda == dataclasses.replace(t, zoom_dtype="bfloat16")
 
 
 def test_create_logger_layout(tmp_path):

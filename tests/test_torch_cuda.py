@@ -245,3 +245,77 @@ def test_tile_kernel_equals_twin_on_heavy_scene():
     torch.cuda.synchronize()
     assert (out[:, 0] > 0).any()
     assert torch.equal(out, ref)
+
+
+def _explicit_precision():
+    """set_explicit_precision for one test; returns a restore callable."""
+    from deepim_tpu_torch.device import set_explicit_precision
+
+    names = ("allow_tf32", "allow_tf32", "allow_bf16_reduced_precision_reduction")
+    owners = (torch.backends.cudnn, torch.backends.cuda.matmul, torch.backends.cuda.matmul)
+    saved = [getattr(o, n) for o, n in zip(owners, names)]
+    set_explicit_precision()
+
+    def restore():
+        for o, n, v in zip(owners, names, saved):
+            setattr(o, n, v)
+    return restore
+
+
+def test_bf16_network_card_equals_cpu():
+    """The bf16 network (cuDNN/cuBLAS bf16 layers) against its plain CPU
+    version (float32 products of the bf16-rounded operands, rounded once) on
+    the same weights and input: rot and trans within one bf16 ulp of the
+    tensor's largest value, flow and mask logits within twice the CPU's own
+    bf16-vs-float32 gap (cuDNN sums in another order, so roundings flip, as
+    between the port and JAX on the CPU, tests/test_torch_bf16.py)."""
+    dev = _need_card()
+    restore = _explicit_precision()
+    try:
+        g = torch.Generator().manual_seed(0)
+        x = torch.rand((2, 8, 96, 128), generator=g)
+        outs = {}
+        for name, d, dt in (("cpu", "cpu", torch.bfloat16), ("f32", "cpu", torch.float32),
+                            ("card", dev, torch.bfloat16)):
+            model = FlowNetDeepIM(input_hw=(96, 128), dtype=dt, generator=torch.Generator().manual_seed(3),
+                                  device=d)
+            with torch.no_grad():
+                trans = torch.randn(model.trans.weight.shape, generator=torch.Generator().manual_seed(4)) * 0.05
+                model.trans.weight.copy_(trans)
+                outs[name] = {k: v.float().cpu() for k, v in model.eval()(x.to(d)).items()}
+    finally:
+        restore()
+    for key in ("rot", "trans"):
+        ref = outs["cpu"][key]
+        ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().max())) - 7)
+        torch.testing.assert_close(outs["card"][key], ref, rtol=0, atol=float(ulp))
+    for key in ("flow", "mask_logit"):
+        err = float((outs["card"][key] - outs["cpu"][key]).abs().max())
+        gap = float((outs["cpu"][key] - outs["f32"][key]).abs().max())
+        assert err <= 2 * gap, (key, err, gap)
+
+
+def test_bf16_zoom_card_equals_cpu():
+    """affine_sample and zoom_images on bf16 images, card against CPU: the
+    bf16-rounded weights and the float32 intermediate on both, so each
+    value within one bf16 ulp."""
+    from deepim_tpu_torch.ops.sampler import ZoomFactor, affine_sample
+    from deepim_tpu_torch.ops.zoom import zoom_images
+
+    dev = _need_card()
+    restore = _explicit_precision()
+    try:
+        g = torch.Generator().manual_seed(5)
+        img = (torch.rand((3, 3, 96, 128), generator=g) * 255.0 - 120.0).to(torch.bfloat16)
+        wx = torch.rand(3, generator=g) * 0.9 + 0.3
+        zf = ZoomFactor(wx, wx.clone(), torch.rand(3, generator=g) - 0.5, torch.rand(3, generator=g) - 0.5)
+        pm = torch.tensor([123.68, 116.779, 103.939])
+        cpu = [affine_sample(img, zf), *zoom_images(img, img.flip(0), zf, pm)]
+        zf_d = ZoomFactor(*(v.to(dev) for v in zf))
+        card = [affine_sample(img.to(dev), zf_d), *zoom_images(img.to(dev), img.flip(0).to(dev), zf_d, pm.to(dev))]
+    finally:
+        restore()
+    for a, b in zip(card, cpu):
+        assert a.dtype == torch.bfloat16
+        ulp = 2.0 ** (torch.floor(torch.log2(b.float().abs().clamp(min=2.0 ** -126))) - 7)
+        assert bool(((a.float().cpu() - b.float()).abs() <= ulp).all())

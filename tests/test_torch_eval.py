@@ -251,15 +251,16 @@ def _fp32_jax_networks(monkeypatch):
 
 
 def test_test_deepim_end_to_end(devkit, weights, tmp_path, monkeypatch):
-    """test_deepim in both packages: the port loads the full checkpoint it
-    saved into its FAST_TEST model, the JAX driver gets the same params;
-    equal tables.  Without a checkpoint the port warns and uses its
+    """test_deepim in both packages, fp32 networks in both: the port loads
+    the full checkpoint it saved into its FAST_TEST model, the JAX driver
+    gets the same params; equal tables.  Without a checkpoint the port warns and uses its
     initial weights; a checkpoint that does not fit raises."""
     params, model = weights
     jc, tc = _cfgs(devkit, FAST_TEST=True)
     out_t = tmp_path / "port"
     save_checkpoint(str(out_t / PREFIX), TEST_EPOCH, TrainState(model, None, 11))
     _fp32_jax_networks(monkeypatch)
+    monkeypatch.setattr(t_test_net, "EVAL_DTYPE", torch.float32)
     j_res = j_test_net.test_deepim(jc, output_dir=str(tmp_path / "jax"), params=params, batch_size=4)
     t_res = t_test_deepim(tc, output_dir=str(out_t), batch_size=4, device="cpu")
     _assert_tables(j_res, t_res)
@@ -282,6 +283,53 @@ def test_test_deepim_end_to_end(devkit, weights, tmp_path, monkeypatch):
     save_checkpoint(str(tmp_path / "wrong" / PREFIX), TEST_EPOCH, TrainState(wrong, None))
     with pytest.raises(RuntimeError, match="size mismatch"):
         t_test_deepim(tc, output_dir=str(tmp_path / "wrong"), batch_size=4, device="cpu")
+
+
+def test_test_deepim_bf16_default_equals_jax(devkit, weights, tmp_path, record_property):
+    """test_deepim as both packages run it by default: bf16 networks, the
+    image zoom float32 on the CPU (the JAX package's CPU choice, and the
+    port's for device="cpu").  The port loads the checkpoint it saved, the
+    unpatched JAX driver gets the same params.  The two bf16 networks'
+    poses differ by bf16 roundings (tests/test_torch_bf16.py), so (fp32
+    networks agree to 1e-4 in the error means): every accuracy at the tables' thresholds (5cm5deg, ADD(-S)
+    at 0.02/0.05/0.10 d, Proj2D at 2/5/10/20 px) equal; the error arrays'
+    means to 2e-3; each accuracy curve on its fine threshold grid apart in
+    at most 4 grid points, by one pair each (100 / 5 pairs), and its AUC
+    to 0.2 (one pair crossing one Proj2D grid point moves it by 0.053).  The
+    largest difference of each kind goes to the test report."""
+    params, model = weights
+    jc, tc = _cfgs(devkit, FAST_TEST=True)
+    out_t = tmp_path / "port"
+    save_checkpoint(str(out_t / PREFIX), TEST_EPOCH, TrainState(model, None, 11))
+    j_res = j_test_net.test_deepim(jc, output_dir=str(tmp_path / "jax"), params=params, batch_size=4)
+    t_res = t_test_deepim(tc, output_dir=str(out_t), batch_size=4, device="cpu")
+    assert t_test_net.EVAL_DTYPE == torch.bfloat16
+    worst = {}
+    for table in ("pose", "add", "arp_2d"):
+        assert set(j_res[table]) == set(t_res[table]), table
+        for cls, by_iter in j_res[table].items():
+            assert set(by_iter) == set(t_res[table][cls])
+            for it, row in by_iter.items():
+                trow = t_res[table][cls][it]
+                assert set(row) == set(trow)
+                for key, v in row.items():
+                    where = (table, cls, it, key)
+                    diff = float(np.abs(np.mean(v) - np.mean(trow[key])) if key == "errors" else
+                                 np.abs(np.asarray(trow[key], np.float64) - np.asarray(v, np.float64)).max())
+                    name = f"{table}_{'errors_mean' if key == 'errors' else key}_max_diff"
+                    worst[name] = max(worst.get(name, 0.0), diff)
+                    if key == "errors":
+                        assert abs(float(np.mean(v)) - float(np.mean(trow[key]))) <= 2e-3, where
+                    elif key == "curve":
+                        diff = np.abs(np.asarray(trow[key]) - np.asarray(v))
+                        assert (diff > 1e-6).sum() <= 4 and diff.max() <= 100.0 / 5 + 1e-6, where
+                    elif key == "auc":
+                        assert abs(trow[key] - v) <= 0.2, where
+                    else:
+                        np.testing.assert_array_equal(trow[key], v, err_msg=str(where))
+    for name, diff in sorted(worst.items()):
+        record_property(name, diff)
+    assert t_res["run"]["pairs"] == 10 and t_res["run"]["raster_dropped"] == 0
 
 
 @pytest.mark.parametrize("fast_test,saved", [(True, True), (True, False), (False, True)])

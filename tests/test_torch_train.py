@@ -543,7 +543,7 @@ def test_mesh_buffers_gather_accepts_tensors():
 
 def test_train_batch_from_scene():
     """engine.scene.train_batch: box-filled observed mask, gt mask, gt
-    depth, the scene's poses, and points zero-padded past each mesh's real
+    and observed depth, the scene's poses, and points zero-padded past each mesh's real
     vertices with weight 0 (the 24-vertex cube, 162-vertex ico2)."""
     k = np.array([[80.0, 0, 32.0], [0, 80.0, 32.0], [0, 0, 1]], np.float32)
     sc = build_scene(2, 64, 64, k, num_iters=2, update_mask="box_gt", device="cpu")
@@ -552,6 +552,6 @@ def test_train_batch_from_scene():
     np.testing.assert_array_equal(batch.points_weights.sum(1).numpy(), [24, 32])
     assert (batch.points_model[0, 24:] == 0).all() and (batch.points_model[1].abs().sum(-1) > 0).all()
     np.testing.assert_array_equal(batch.mask_observed.numpy(), np.asarray(j_box_fill(jnp.asarray(sc.mask.numpy()))))
-    assert torch.equal(batch.depth_gt_observed, sc.depth[:, 0])
+    assert torch.equal(batch.depth_gt_observed, sc.depth[:, 0]) and torch.equal(batch.depth_observed, sc.depth)
     np.testing.assert_array_equal(batch.pose_rendered.numpy(), sc.pose0)
     np.testing.assert_array_equal(batch.class_index.numpy(), sc.cls_idx)

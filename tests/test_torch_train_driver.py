@@ -59,6 +59,7 @@ CLASSES = ("cube", "sphere")
 PREFIX = "deepim_synth"
 N_TRAIN = 4
 _J_BUILD_MODEL = j_train_net.build_model
+_T_BUILD_MODEL = t_train_net.build_model
 
 
 @pytest.fixture(scope="module")
@@ -330,7 +331,8 @@ def _recorders(store: dict):
 @pytest.fixture(scope="module")
 def one_epoch(devkit, tmp_path_factory):
     """One epoch of each package's train_net from the same initial weights
-    (the JAX package's fp32 build_model draw)."""
+    (the JAX package's fp32 build_model draw), fp32 networks in both (each
+    package's build_model patched: both build bf16 by default)."""
     out = tmp_path_factory.mktemp("train")
     jc, tc = _cfgs(devkit)
     _, params = _J_BUILD_MODEL(jc, dtype=jnp.float32)
@@ -350,6 +352,8 @@ def one_epoch(devkit, tmp_path_factory):
                 store["params"] = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, state.params))
                 store["step"] = int(state.step)
             else:
+                mp.setattr(mod, "build_model",
+                           lambda cfg, device: _T_BUILD_MODEL(cfg, dtype=torch.float32, device=device))
                 state = t_train_net.train_net(tc, output_dir=store["dir"], device="cpu", init_state_dict=init)
                 store["params"] = {k: v.detach() for k, v in state.model.state_dict().items()}
                 store["step"] = state.step
@@ -394,11 +398,14 @@ def test_train_net_one_epoch_matches_jax(one_epoch):
     assert os.path.exists(os.path.join(t["dir"], f"{PREFIX}_ckpt", "1"))
 
 
-def test_train_net_resume_is_exact(devkit, one_epoch, tmp_path):
+def test_train_net_resume_is_exact(devkit, one_epoch, tmp_path, monkeypatch):
     """Two epochs in one run equal one epoch, then RESUME from its
     checkpoint with begin_epoch 1, bit for bit: parameters, the optimizer's
-    momentum, update count and step.  Each epoch records its figures on
-    the returned state."""
+    momentum, update count and step (fp32 networks, as the one_epoch run
+    whose checkpoint is resumed).  Each epoch records its figures on the
+    returned state."""
+    monkeypatch.setattr(t_train_net, "build_model",
+                        lambda cfg, device: _T_BUILD_MODEL(cfg, dtype=torch.float32, device=device))
     jc, tc = _cfgs(devkit, {"end_epoch": 2})
     whole = t_train_net.train_net(tc, output_dir=str(tmp_path), device="cpu", init_state_dict=one_epoch["init"])
     assert [e["epoch"] for e in whole.epochs] == [1, 2]
