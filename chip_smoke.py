@@ -92,7 +92,41 @@ Phases (each raises on failure; the script then exits non-zero):
      with box_observed masks, two per-class EULER head groups and depth
      input channels, once with input_mask=False (no mask channels, the zoom
      from the image foregrounds): finite orthonormal poses, csr_raster
-     launched the planned number of times and nothing else.
+     launched the planned number of times and nothing else;
+ 11. tracking and the refinement videos: (a) track_pairdb_sequence on a
+     64x64 devkit (16 frames of an 80-face icosphere, 2 iterations a
+     frame, the full network) on the card and on the CPU, fp32 to 1e-5
+     frame by frame up to the first departure (a track is discontinuous
+     where a pixel changes side), which may come no earlier than the CPU's
+     own when frame 0's pose is nudged by 1e-7 m, and from there within
+     twice the CPU's own gap; bf16 within 3x the CPU's own bf16-vs-fp32
+     gap; (b) a 480x640 devkit of a 64-frame
+     orbit a class (tests/test_tracker.py's path at LINEMOD depths, each
+     initial pose perturbed as synth_data perturbs it) in
+     deepim_tpu_torch/_build/phase11/, and tools/track_video.main for
+     "sphere" (the 20,480-face icosphere alone in its bank: csr_raster) and
+     "cube" (0.08 m: tile_raster) from a seeded bf16 checkpoint, with
+     --iters-per-frame 2 --out <cls>.avi after a warm-up call; the
+     class's kernel is held against its twin at the track's render
+     (batch 1, the class alone in its bank, frame 0's pose); finite
+     orthonormal poses, no dropped pair, the class's kernel launched 64 x 2
+     (track) + 64 (overlay) times and nothing else, the AVI read back
+     from its own header and index with 64 frames of 480x640; it prints
+     tracked frames/s and ms a frame (the track alone), the decode and
+     overlay seconds, one 16-frame track's device busy and idle share
+     under torch.profiler, and the host synchronisations of a 2-frame
+     track (torch.cuda.set_sync_debug_mode; none may come from
+     engine/tracker.py itself); (c) the sphere's orbit
+     tracked with tests/test_tracker.py's centroid oracle in place of the
+     network from frame 0's gt pose: the mean translation error after
+     frame 10 below half the static init's; (d) TEST.VIS_VIDEO through
+     test_deepim on phase 8's devkit and output (pred_eval from its cached
+     results_pose.pkl), csr_raster first held against its twin at each
+     video's render (batch 8 of its class): video_cube.avi and
+     video_sphere.avi with 8 pairs x 4 iterations = 32 frames of 960x1280,
+     csr_raster launched the
+     videos' planned count and nothing else; the seconds per video split
+     into render, Canny and compose, and PNG encode.
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -1203,6 +1237,406 @@ def drive_options(dev, card: str) -> None:
             f"[{card}]")
 
 
+
+# Phase 11: tracking and the refinement videos.
+PHASE11_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase11")
+TRACK_T = 64          # frames of each full-width orbit
+TRACK_ITERS = 2       # refinement iterations a frame (--iters-per-frame)
+TRACK_PROFILE_T = 16  # frames of the profiled track
+SMALL_TRACK_T = 16    # frames of the 64x64 card-vs-CPU track
+# A rounding-level nudge of frame 0's translation (about 2 float32 ulps at
+# these depths): a track is a chain of steps that are discontinuous where a
+# pixel changes side (the box of the rendered mask), so two devices that
+# round differently can part after a flip.  The card is held to
+# SMALL_TRACK_TOL frame by frame up to its first departure from the CPU; it
+# may depart no earlier than the CPU departs from itself under this nudge,
+# and from there it is held to twice the CPU's own gap
+# (tests/test_torch_tracker.py).
+ROUNDING_NUDGE = 1e-7
+SMALL_TRACK_TOL = 1e-5
+VIDEO_PAIRS = 8       # gen_refine_video's num_pairs default
+# A kernel's figures at a driver's render, as the kernels line carries them.
+CHECK_KEYS = ("launches", "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+
+
+def orbit_poses(n: int) -> np.ndarray:
+    """tests/test_tracker.py:make_orbit's Lissajous path at LINEMOD depths
+    (0.8 m +- 0.09, lateral amplitudes scaled by 0.8 / 0.55 from its
+    0.55 m), turning slowly about each axis: (n, 3, 4) poses."""
+    from scipy.spatial.transform import Rotation
+
+    t = np.arange(n, dtype=np.float64)
+    poses = np.zeros((n, 3, 4), np.float32)
+    poses[:, :, :3] = Rotation.from_euler("xyz", np.stack([0.4 + 0.01 * t, -0.3 + 0.015 * t, 0.2 + 0.0 * t], 1)
+                                          ).as_matrix()
+    poses[:, 0, 3] = 0.073 * np.sin(0.12 * t)
+    poses[:, 1, 3] = 0.058 * np.cos(0.09 * t)
+    poses[:, 2, 3] = 0.8 + 0.087 * np.sin(0.07 * t)
+    return poses
+
+
+def write_orbit_devkit(devkit: str, dev, card: str) -> np.ndarray:
+    """Phase 11's 480x640 devkit: LINEMOD intrinsics, "cube" (0.08 m) and
+    "sphere" (the 20,480-face icosphere), each class's val_ sequence the
+    TRACK_T frames of orbit_poses, each frame's rendered initial pose the
+    orbit's perturbed by synth_data.sample_perturbed_pose.  Files as
+    tools/synth_data.py writes them (generate_dataset writes the models).
+    Returns the orbit."""
+    from deepim_tpu_torch.data.pairdb import save_pose_file
+    from deepim_tpu_torch.render.rasterizer import rasterize_single
+    from deepim_tpu_torch.tools.synth_data import PNG_FILTER, sample_perturbed_pose
+
+    meshes = {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 5)}
+    t0 = time.perf_counter()
+    generate_dataset(devkit, meshes, LINEMOD_K, n_train=0, n_val=0, height=H, width=W, device=dev)
+    orbit = orbit_poses(TRACK_T)
+    rng = np.random.RandomState(11)
+    k = torch.from_numpy(LINEMOD_K).to(dev)
+    for ci, cls in enumerate(sorted(meshes), start=1):
+        mesh = meshes[cls]
+        bank = MeshBank.from_meshes([mesh]).arrays()
+        raster = tune_raster_for_bank(EngineConfig(raster=RasterConfig(height=H, width=W)), bank, LINEMOD_K).raster
+        args = [torch.from_numpy(np.asarray(a)).to(dev) for a in (mesh.vertices, mesh.colors, mesh.faces)]
+        valid = torch.ones(mesh.num_faces, dtype=torch.bool, device=dev)
+        lines = []
+        for i, pose in enumerate(orbit):
+            idx = f"{i:06d}"
+            for sub, p, label in (("observed", pose, True), ("gt_observed", pose, False),
+                                  ("rendered", sample_perturbed_pose(pose, rng), False)):
+                d = os.path.join(devkit, "data", sub, cls)
+                os.makedirs(d, exist_ok=True)
+                name = f"{idx}_0" if sub == "rendered" else idx
+                rgb, depth = rasterize_single(*args, valid, torch.from_numpy(p).to(dev), k, raster, device=dev)
+                depth = depth.cpu().numpy()
+                write_png(os.path.join(d, f"{name}-color.png"), rgb.cpu().numpy().astype(np.uint8), PNG_FILTER)
+                write_png(os.path.join(d, f"{name}-depth.png"), (depth * 1000.0).astype(np.uint16), PNG_FILTER)
+                if label:
+                    write_png(os.path.join(d, f"{name}-label.png"), (depth > 0).astype(np.uint8) * ci, PNG_FILTER)
+                else:
+                    save_pose_file(os.path.join(d, f"{name}-pose.txt"), p)
+            lines.append(f"{cls}/{idx} {cls}/{idx}_0")
+        with open(os.path.join(devkit, "image_set", f"val_{cls}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    log(f"[tracking] devkit: 2 classes x a {TRACK_T}-frame orbit at {H}x{W} (z {orbit[:, 2, 3].min():.3f}-"
+        f"{orbit[:, 2, 3].max():.3f} m), written in {time.perf_counter() - t0:.2f} s [{card}]")
+    return orbit
+
+
+def _yaml_lines(d: dict, indent: str = "") -> list:
+    """A config dict as the port's YAML reader reads it (flow lists,
+    quoted strings, floats without exponents)."""
+    def scalar(v):
+        if isinstance(v, bool):
+            return "true" if v else "false"
+        if isinstance(v, str):
+            return json.dumps(v)
+        if isinstance(v, float):
+            return np.format_float_positional(v, trim="-")
+        return str(v)
+
+    lines = []
+    for key, v in d.items():
+        if isinstance(v, dict):
+            lines += [f"{indent}{key}:"] + _yaml_lines(v, indent + "  ")
+        elif isinstance(v, (list, tuple)):
+            lines.append(f"{indent}{key}: [{', '.join(scalar(x) for x in v)}]")
+        else:
+            lines.append(f"{indent}{key}: {scalar(v)}")
+    return lines
+
+
+def track_config_file(devkit: str, cls: str) -> str:
+    """lm6d_ape_iter4_8epoch.yaml pointed at the phase-11 devkit, with the
+    one class `cls` (so the bank holds its mesh alone: the cube renders
+    through tile_raster, the sphere through csr_raster), written as YAML."""
+    from deepim_tpu_torch.utils.yaml_subset import load_file
+
+    d = load_file(EVAL_CFG)
+    d["output_path"] = os.path.join(PHASE11_DIR, "output")
+    d["SCALES"] = [H, W]
+    d["dataset"].update(dataset_path=devkit, root_path=devkit, model_dir=os.path.join(devkit, "models"),
+                        class_name=[cls], NUM_CLASSES=1, test_image_set="val_",
+                        INTRINSIC_MATRIX=LINEMOD_K.flatten().tolist())
+    path = os.path.join(PHASE11_DIR, f"track_{cls}.yaml")
+    with open(path, "w") as f:
+        f.write("\n".join(_yaml_lines(d)) + "\n")
+    validate_config(load_config(path))
+    return path
+
+
+class CentroidOracle:
+    """tests/test_tracker.py's analytic stand-in for the network, on the
+    port's NCHW input: the untangled delta from the foreground centroid
+    shift (vx, vy) and area ratio (vz) of the zoomed (observed, rendered)
+    pair, at LINEMOD's focal lengths."""
+
+    num_regressors = 1
+
+    def __init__(self, gain: float = 0.8):
+        self.gain, self.fx, self.fy = gain, float(LINEMOD_K[0, 0]), float(LINEMOD_K[1, 1])
+
+    def __call__(self, x):
+        fo = (x[:, 0:3].float().sum(1) > 0.02).float()
+        fr = (x[:, 3:6].float().sum(1) > 0.02).float()
+        h, w = fo.shape[1:]
+        ys = torch.arange(h, dtype=torch.float32, device=x.device)[None, :, None]
+        xs = torch.arange(w, dtype=torch.float32, device=x.device)[None, None, :]
+        area_o = fo.sum((1, 2)).clamp(min=1.0)
+        area_r = fr.sum((1, 2)).clamp(min=1.0)
+        vx = self.gain * ((fo * xs).sum((1, 2)) / area_o - (fr * xs).sum((1, 2)) / area_r) / self.fx
+        vy = self.gain * ((fo * ys).sum((1, 2)) / area_o - (fr * ys).sum((1, 2)) / area_r) / self.fy
+        vz = self.gain * 0.5 * torch.log(area_o / area_r)
+        rot = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=x.device).repeat(x.shape[0], 1)
+        return {"rot": rot, "trans": torch.stack([vx, vy, vz], -1)}
+
+
+def frame_errors(a, b) -> np.ndarray:
+    """Per-frame max abs difference of two (T, ...) tracks."""
+    return np.abs(np.asarray(a) - np.asarray(b)).reshape(len(a), -1).max(1)
+
+
+def first_departure(err: np.ndarray, tol: float):
+    """The first frame whose error exceeds tol, or None."""
+    over = np.nonzero(err > tol)[0]
+    return int(over[0]) if over.size else None
+
+
+def small_track_check(dev) -> None:
+    """Phase 11a: track_pairdb_sequence on a 64x64 devkit (a cube and an
+    80-face icosphere, SMALL_TRACK_T frames of the sphere, TRACK_ITERS
+    iterations a frame, the full network) on the card and on the CPU with
+    the same weights: fp32 poses to SMALL_TRACK_TOL up to the first
+    departure, then as ROUNDING_NUDGE's comment says; bf16 within
+    BF16_GAP_FACTOR times the CPU's own bf16-vs-fp32 gap."""
+    from deepim_tpu_torch.tools.track_video import track_pairdb_sequence
+
+    devkit = os.path.join(PHASE11_DIR, "devkit64")
+    generate_dataset(devkit, {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 1)}, K64,
+                     n_train=0, n_val=SMALL_TRACK_T, height=64, width=64, z_range=(0.45, 0.6),
+                     raster_cfg=RasterConfig(height=64, width=64, tile_h=16, tile_w=16, max_faces_per_tile=128,
+                                             chunk=16, znear=0.05, zfar=10.0), device="cpu")
+    cfg = update_config_dict(Config(), {
+        "SCALES": [64, 64],
+        "dataset": {"dataset_path": devkit, "root_path": devkit, "model_dir": os.path.join(devkit, "models"),
+                    "class_name": ["cube", "sphere"], "INTRINSIC_MATRIX": K64.flatten().tolist(),
+                    "NORMALIZE_FLOW": 20.0, "ZNEAR": 0.05, "ZFAR": 10.0},
+        "network": {"INPUT_MASK": True, "PRED_FLOW": True, "PRED_MASK": True, "PIXEL_MEANS": list(PIXEL_MEANS)},
+    })
+    db, pairdb = load_gt_pairdb(cfg, "LM6D_REFINE", "val_sphere", "sphere", devkit, devkit)
+    nudged = [dict(pairdb[0], pose_rendered=pairdb[0]["pose_rendered"].copy())] + pairdb[1:]
+    nudged[0]["pose_rendered"][:, 3] += ROUNDING_NUDGE
+    bank = build_mesh_bank(cfg)
+    poses = {}
+    for mode in ("fp32", "bf16"):
+        model = make_model(True, 12, "cpu", hw=(64, 64), dtype=PRECISIONS[mode][0])
+        for side, d in (("cpu", "cpu"), ("cuda", dev)):
+            with driver_precision(mode), torch.no_grad():
+                poses[mode, side], _, _, run = track_pairdb_sequence(cfg, model.to(d), db, pairdb, bank, TRACK_ITERS,
+                                                                     device=d)
+            if run["raster_dropped"] or run["frames"] != SMALL_TRACK_T:
+                raise AssertionError(f"64x64 track {mode} {side}: {run}")
+    err = frame_errors(poses["fp32", "cuda"], poses["fp32", "cpu"])
+    dep = first_departure(err, SMALL_TRACK_TOL)
+    note = f"every frame within {SMALL_TRACK_TOL}"
+    if dep is not None:
+        with driver_precision("fp32"), torch.no_grad():
+            model = make_model(True, 12, "cpu", hw=(64, 64))
+            far = track_pairdb_sequence(cfg, model, db, nudged, bank, TRACK_ITERS, device="cpu")[0]
+        gap = frame_errors(far, poses["fp32", "cpu"])
+        cpu_dep = first_departure(gap, SMALL_TRACK_TOL)
+        note = (f"the card departs from {SMALL_TRACK_TOL} at frame {dep}, the CPU from itself under a "
+                f"{ROUNDING_NUDGE} m nudge at {cpu_dep}")
+        if cpu_dep is None or dep < cpu_dep or err[cpu_dep:].max() > 2 * gap[cpu_dep:].max():
+            raise AssertionError(f"64x64 track: {note}; card vs CPU pose err {err.max()}, the CPU's own gap "
+                                 f"{gap.max()}")
+        note += f", err {err[cpu_dep:].max():.3g} against twice the CPU's own gap {2 * gap[cpu_dep:].max():.3g}"
+    if not np.isfinite(poses["fp32", "cuda"]).all():
+        raise AssertionError("64x64 track: non-finite poses on the card")
+    ratio = gap_ratio(poses["bf16", "cuda"], poses["bf16", "cpu"], poses["fp32", "cpu"])
+    if not np.isfinite(poses["bf16", "cuda"]).all() or ratio > BF16_GAP_FACTOR:
+        raise AssertionError(f"64x64 track bf16: card vs CPU pose diff {ratio} of the CPU's bf16-vs-fp32 gap")
+    log(f"[reference] 64x64 track (track_pairdb_sequence, {SMALL_TRACK_T} frames x {TRACK_ITERS} iterations, full "
+        f"network): fp32 card vs CPU pose err {err.max():.3g} ({note}); bf16 card vs CPU pose diff {ratio:.3g} of "
+        f"the CPU's bf16-vs-fp32 gap (limit {BF16_GAP_FACTOR})")
+
+
+def host_syncs(fn) -> dict:
+    """The host synchronisations fn() makes, by source line
+    (torch.cuda.set_sync_debug_mode's warnings)."""
+    import warnings
+
+    counts = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+            counts[where] = counts.get(where, 0) + 1
+    return counts
+
+
+def drive_tracking(dev, card: str) -> dict:
+    """Phase 11b and 11c (see the module docstring).  Returns, for each
+    class, its kernel's check at the track's render (check_kernel) with the
+    track's launches."""
+    from deepim_tpu_torch.data.loader import TestLoader
+    from deepim_tpu_torch.engine.tracker import make_tracker
+    from deepim_tpu_torch.tools import track_video
+    from deepim_tpu_torch.utils.avi import read_avi_index
+
+    devkit = os.path.join(PHASE11_DIR, "devkit")
+    orbit = write_orbit_devkit(devkit, dev, card)
+    checks = {}
+    for cls, kernel in (("sphere", "csr_raster"), ("cube", "tile_raster")):
+        label = f"tracking {cls}"
+        cfg_file = track_config_file(devkit, cls)
+        cfg = load_config(cfg_file)
+        prefix = os.path.join(PHASE11_DIR, "ckpt", cls, cfg.TRAIN.model_prefix)
+        model = make_model(True, 13, dev, hw=(H, W), dtype=torch.bfloat16)
+        save_checkpoint(prefix, cfg.TEST.test_epoch, TrainState(model, None))
+        bank = build_mesh_bank(cfg)
+        ecfg = EngineConfig.from_config(cfg, bank_arrays=bank, device=dev)
+        m = MeshBuffers.gather(bank, [0], device=dev)
+        plan = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(orbit[:1]),
+                             torch.from_numpy(LINEMOD_K), ecfg.raster, corners=m.corners,
+                             corner_colors=m.corner_colors, device=dev)
+        if {n for n, _ in plan} != {kernel}:
+            raise AssertionError(f"{label}: a render plans {[n for n, _ in plan]}, want {kernel}")
+        checks[cls] = check_kernel(kernel, plan[0][1], card, shape=label)
+        del checks[cls]["out"]
+        # One TRACK_PROFILE_T-frame track under the profiler (breakdown runs
+        # it once first: the warm-up track), and the host synchronisations
+        # of a 2-frame track under torch's sync debug mode.
+        batches = list(TestLoader(load_gt_pairdb(cfg, "LM6D_REFINE", f"val_{cls}", cls, devkit, devkit)[1]
+                                  [:TRACK_PROFILE_T], cfg, batch_size=1).batches())
+        frames = torch.from_numpy(np.stack([b["image_observed"] for b, _ in batches])).to(dev)
+        pose0 = torch.from_numpy(batches[0][0]["pose_rendered"]).to(dev)
+        k = torch.from_numpy(LINEMOD_K).to(dev)
+        track = make_tracker(model, ecfg, TRACK_ITERS, with_stats=True, device=dev)
+        with torch.no_grad():
+            fam = breakdown(f"{label} {TRACK_PROFILE_T} frames", lambda: track(frames, m, k, pose0), card)
+            syncs = host_syncs(lambda: track(frames[:2], m, k, pose0))
+        if any(where.startswith("deepim_tpu_torch/engine/tracker.py") for where in syncs):
+            raise AssertionError(f"{label}: the tracker's own code synchronised the host: {syncs}")
+        log(f"[{label}] one {TRACK_PROFILE_T}-frame track: device busy {fam['busy']:.2f} of {fam['wall']:.2f} ms "
+            f"wall, idle share {1 - fam['busy'] / fam['wall']:.3f}, {fam['wall'] / TRACK_PROFILE_T:.2f} ms a frame "
+            f"under the profiler; host synchronisations in a 2-frame track ({2 * TRACK_ITERS} iterations): "
+            f"{sum(syncs.values())}, none from engine/tracker.py ({syncs}) [{card}]")
+
+        argv = ["--cfg", cfg_file, "--cls", cls, "--ckpt-prefix", prefix, "--iters-per-frame", str(TRACK_ITERS),
+                "--device", str(dev)]
+        out = os.path.join(PHASE11_DIR, f"{cls}.avi")
+        torch.cuda.synchronize()
+        rk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = track_video.main(argv + ["--out", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        expect = len(plan) * TRACK_T * (TRACK_ITERS + 1)
+        if counts != {**{n: 0 for n in counts}, kernel: expect}:
+            raise AssertionError(f"{label}: launches {counts}, want {kernel} {expect} ({len(plan)} a render x "
+                                 f"{TRACK_T} frames x ({TRACK_ITERS} iterations + the overlay)) and nothing else")
+        checks[cls]["launches"] = counts[kernel]
+        poses, run = res["poses"], res["run"]
+        r = poses[:, :, :3]
+        orth = float(np.abs(r @ np.swapaxes(r, -1, -2) - np.eye(3)).max())
+        if poses.shape != (TRACK_T, 3, 4) or not np.isfinite(poses).all() or orth > 1e-4 or run["raster_dropped"]:
+            raise AssertionError(f"{label}: poses {poses.shape}, finite {np.isfinite(poses).all()}, orthonormality "
+                                 f"err {orth}, dropped {run['raster_dropped']}")
+        idx = read_avi_index(out)
+        if (idx["frames"], idx["height"], idx["width"], idx["fourcc"]) != (TRACK_T, H, W, "MPNG"):
+            raise AssertionError(f"{label}: {out} holds {idx['frames']} frames of {idx['height']}x{idx['width']}")
+        log(f"[{label}] track_video.main at {H}x{W}, {TRACK_T} frames x {TRACK_ITERS} iterations, bf16 network from "
+            f"a checkpoint: {TRACK_T / run['track_s']:.2f} tracked frames/s, {run['track_s'] / TRACK_T * 1e3:.2f} ms a "
+            f"frame (the track alone: staging the video on the card, the frame loop, the poses back); decode "
+            f"{run['decode_s']:.3f} s; overlay (render, edges) and write {run['overlay_s']:.3f} s ({idx['frames']} "
+            f"frames, {run['video']['bytes'] / 2**20:.1f} MiB); the call {wall:.3f} s; launches {counts} (planned {len(plan)} a render); 0 dropped pairs; mean error rot "
+            f"{res['rot_err'].mean():.2f} deg, trans {res['trans_err'].mean() * 1e3:.1f} mm (random weights) [{card}]")
+
+        if cls == "sphere":
+            # 11c: the loop closes with the centroid oracle in place of the
+            # network.  The oracle reads raw intensities (its foreground is
+            # luminance > 0.02), so the images are not mean-subtracted.
+            oracle_ecfg = dataclasses.replace(ecfg, pixel_means=(0.0, 0.0, 0.0))
+            with torch.no_grad():
+                _, tracked = make_tracker(CentroidOracle(), oracle_ecfg, TRACK_ITERS, device=dev)(
+                    torch.from_numpy(np.stack([b["image_observed"] for b, _ in TestLoader(
+                        load_gt_pairdb(cfg, "LM6D_REFINE", "val_sphere", "sphere", devkit, devkit)[1], cfg,
+                        batch_size=1).batches()])), m, k, torch.from_numpy(orbit[:1]))
+            err = np.linalg.norm(tracked[:, 0, :, 3].cpu().numpy() - orbit[:, :, 3], axis=-1)
+            static = np.linalg.norm(orbit[0, :, 3] - orbit[:, :, 3], axis=-1)
+            if not err[10:].mean() < 0.5 * static[10:].mean():
+                raise AssertionError(f"tracking oracle: mean error after frame 10 {err[10:].mean()} m, static init "
+                                     f"{static[10:].mean()} m")
+            q = np.quantile(err, [0.0, 0.5, 0.9, 1.0]) * 1e3
+            log(f"[tracking oracle] the sphere's {TRACK_T}-frame orbit tracked by the centroid oracle from frame 0's "
+                f"gt pose: mean error after frame 10 {err[10:].mean() * 1e3:.2f} mm against "
+                f"{static[10:].mean() * 1e3:.2f} mm for the static init; per-frame error quantiles (min, median, 0.9, "
+                f"max) "
+                f"{', '.join(f'{v:.2f}' for v in q)} mm [{card}]")
+    return checks
+
+
+def drive_vis_video(dev, card: str) -> dict:
+    """Phase 11d: TEST.VIS_VIDEO through test_deepim on phase 8's devkit and
+    output directory (pred_eval served from its results_pose.pkl).
+    Returns csr_raster's check at each video's render (batch VIDEO_PAIRS),
+    by class, and the videos' launches."""
+    from deepim_tpu_torch.utils.avi import read_avi_index
+
+    devkit = os.path.join(PHASE8_DIR, "devkit")
+    cfg = update_config_dict(eval_config(devkit, os.path.join(PHASE8_DIR, "output")), {"TEST": {"VIS_VIDEO": True}})
+    out = os.path.join(PHASE8_DIR, "output", "timed")
+    classes = list(cfg.dataset.class_name)
+    bank = build_mesh_bank(cfg)
+    ecfg = EngineConfig.from_config(cfg, bank_arrays=bank, device=dev)
+    label = "vis video"
+    # Each video's first render (its class, batch VIDEO_PAIRS): its plan and
+    # csr_raster held against its twin there.
+    checks, expect = {}, 0
+    for cls in classes:
+        _, recs = load_gt_pairdb(cfg, "LM6D_REFINE", f"val_{cls}", cls, devkit, devkit)
+        m = MeshBuffers.gather(bank, np.full(VIDEO_PAIRS, classes.index(cls)), device=dev)
+        plan = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid,
+                             torch.from_numpy(np.stack([r["pose_rendered"] for r in recs[:VIDEO_PAIRS]])),
+                             torch.from_numpy(cfg.dataset.intrinsic_matrix()), ecfg.raster, corners=m.corners,
+                             corner_colors=m.corner_colors, device=dev)
+        if {name for name, _ in plan} != {"csr_raster"}:
+            raise AssertionError(f"{label} {cls}: a render plans {[name for name, _ in plan]}")
+        checks[cls] = check_kernel("csr_raster", plan[0][1], card, shape=f"{label} {cls}")
+        del checks[cls]["out"]
+        expect += len(plan) * cfg.TEST.test_iter
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = test_deepim(cfg, output_dir=out, batch_size=EVAL_B, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if "run" in res or counts != {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": 0}:
+        raise AssertionError(f"{label}: refined again ({'run' in res}) or launches {counts}, want csr_raster "
+                             f"{expect} (each video's plan x {cfg.TEST.test_iter} iterations) and nothing else")
+    n_frames = VIDEO_PAIRS * cfg.TEST.test_iter
+    for cls in classes:
+        idx = read_avi_index(os.path.join(out, f"video_{cls}.avi"))
+        if (idx["frames"], idx["height"], idx["width"]) != (n_frames, 2 * H, 2 * W):
+            raise AssertionError(f"{label}: video_{cls}.avi holds {idx['frames']} frames of "
+                                 f"{idx['height']}x{idx['width']}")
+        v = res["videos"][cls]
+        log(f"[{label}] test_deepim with TEST.VIS_VIDEO, pred_eval from its cache: video_{cls}.avi, {idx['frames']} "
+            f"frames of {2 * H}x{2 * W}, in {v['render_s'] + v['compose_s'] + v['write_s']:.3f} s: render "
+            f"(refine_step and the copies to the host) {v['render_s']:.3f} s, Canny and compose "
+            f"{v['compose_s']:.3f} s, write {v['write_s']:.3f} s of which PNG encode {v['encode_s']:.3f} s [{card}]")
+    log(f"[{label}] the call {wall:.3f} s; launches {counts} (planned {expect}) [{card}]")
+    return {"launches": counts["csr_raster"], **checks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
@@ -1304,7 +1738,7 @@ def main() -> int:
     render_comparison(csr_scene, dev, card)
 
     # 7. Small-input reference checks.
-    for d in (PHASE8_DIR, PHASE9_DIR):
+    for d in (PHASE8_DIR, PHASE9_DIR, PHASE11_DIR):
         shutil.rmtree(d, ignore_errors=True)
     small_reference_checks(dev)
     small_driver_check(dev)
@@ -1315,6 +1749,13 @@ def main() -> int:
     driver = drive_eval_driver(dev, card)
     trainer = drive_train_driver(dev, card)
     drive_options(dev, card)
+
+    # 11. Tracking and the refinement videos.
+    t11 = time.perf_counter()
+    small_track_check(dev)
+    tracks = drive_tracking(dev, card)
+    videos = drive_vis_video(dev, card)
+    log(f"[tracking] phase 11 took {time.perf_counter() - t11:.1f} s [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
@@ -1330,8 +1771,16 @@ def main() -> int:
             **({f"heavy_{key}": heavy[key] for key in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
                                                        "bound_by")} if name == "tile_raster" else {}),
             **({f"{tag}_{key}": run[key] for tag, run in (("driver", driver), ("train_driver", trainer))
-                for key in ("launches", "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}
+                for key in CHECK_KEYS}
                if name == "csr_raster" else {}),
+            # Phase 11: each kernel at the full-width track's render with the
+            # track's launches (sphere: csr_raster, cube: tile_raster), and
+            # csr_raster at each refinement video's render with the videos'.
+            **({f"track_{key}": tracks["sphere" if name == "csr_raster" else "cube"][key] for key in CHECK_KEYS}
+               if name != "csr_planes_raster" else {}),
+            **({"video_launches": videos["launches"]} if name == "csr_raster" else {}),
+            **({f"video_{cls}_{key}": videos[cls][key] for cls in ("cube", "sphere") for key in CHECK_KEYS
+                if key != "launches"} if name == "csr_raster" else {}),
         }
         for name, r in results.items()
     ]

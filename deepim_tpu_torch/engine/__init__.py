@@ -15,6 +15,7 @@ from deepim_tpu_torch.engine.refine import (
     render_at_pose,
     tune_raster_for_bank,
 )
+from deepim_tpu_torch.engine.tracker import make_tracker, track_video_sharded
 from deepim_tpu_torch.engine.train import (
     Optimizer,
     TrainBatch,
@@ -30,6 +31,7 @@ __all__ = [
     "lr_steps_from_config", "warmup_multifactor_schedule",
     "EngineConfig", "MeshBuffers", "Observation", "refine", "refine_step",
     "render_at_pose", "tune_raster_for_bank",
+    "make_tracker", "track_video_sharded",
     "Optimizer", "TrainBatch", "TrainState", "compute_losses", "flow_weights_from_valid",
     "make_optimizer", "make_train_step",
 ]

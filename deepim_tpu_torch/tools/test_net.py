@@ -24,6 +24,7 @@ from deepim_tpu_torch.engine.checkpoint import checkpoint_path, load_checkpoint
 from deepim_tpu_torch.engine.tester import eval_flow_epe, eval_precomputed_poses, pred_eval
 from deepim_tpu_torch.engine.train import TrainState
 from deepim_tpu_torch.models.flownet import FlowNetDeepIM
+from deepim_tpu_torch.toolkit.gen_video import gen_refine_video
 from deepim_tpu_torch.tools.train_net import build_mesh_bank, build_model, input_channels, rot_dim
 from deepim_tpu_torch.utils.logger import create_logger, logger
 
@@ -61,6 +62,10 @@ def test_deepim(cfg: Config, output_dir: str | None = None, batch_size: int = 16
     refinement ran, results['run'] (see pred_eval) also holds the host
     seconds of the stages before it: 'model_s' (network and checkpoint),
     'bank_s' (mesh bank) and 'pairdb_s' (pair lists), and 'pred_eval_s'.
+    TEST.VIS_VIDEO writes each class's refinement video to
+    <output_dir>/video_<class>.avi (toolkit/gen_video.py, its first 8
+    pairs) and returns what gen_refine_video returned under
+    results['videos'][class].
 
     The eval network computes in EVAL_DTYPE (bf16, as the JAX test_deepim's)
     whatever `model`'s dtype, and on CUDA the image zoom is bf16 too.  Precision on the card is set explicitly first
@@ -69,8 +74,6 @@ def test_deepim(cfg: Config, output_dir: str | None = None, batch_size: int = 16
     set_explicit_precision()
     if cfg.dataset.dataset.startswith("ModelNet"):
         raise NotImplementedError("ModelNet evaluation (test_modelnet) is not ported yet (ROADMAP A10)")
-    if cfg.TEST.VIS_VIDEO:
-        raise NotImplementedError("TEST.VIS_VIDEO (refinement videos) is not ported yet (ROADMAP A10)")
     if output_dir is None:
         output_dir = create_logger(cfg.output_path, cfg.TRAIN.model_prefix, cfg.dataset.test_image_set)
     stages = {}
@@ -116,6 +119,14 @@ def test_deepim(cfg: Config, output_dir: str | None = None, batch_size: int = 16
         results["run"].update(stages)
     if cfg.network.PRED_FLOW and not cfg.TEST.FAST_TEST:  # then eval_model is the full model
         results["flow_epe"] = eval_flow_epe(cfg, eval_model, class_dbs, bank_arrays, batch_size, device=dev)
+    if cfg.TEST.VIS_VIDEO:
+        # Each class's refinement-iteration video, also when pred_eval was
+        # served from its cache.
+        results["videos"] = {
+            db.cur_class: gen_refine_video(cfg, eval_model, pairdb, bank_arrays,
+                                           os.path.join(output_dir, f"video_{db.cur_class}.avi"), device=dev)
+            for db, pairdb in class_dbs
+        }
     return results
 
 

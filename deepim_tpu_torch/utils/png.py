@@ -147,11 +147,11 @@ def _filter_rows(x: np.ndarray, ft: int, bpp: int) -> np.ndarray:
     return ((xi - pred) & 255).astype(np.uint8)
 
 
-def write_png(path: str, array: np.ndarray, filter_type: int = 0) -> None:
-    """Encode `array` as a PNG: (H, W) uint8 or uint16 gray, (H, W, 3) uint8
-    RGB or (H, W, 4) uint8 RGBA.  Every row gets `filter_type` (0 None,
-    1 Sub, 2 Up, 3 Average, 4 Paeth); zlib compresses at level 1, fast
-    to write and to read."""
+def encode_png(array: np.ndarray, filter_type: int = 0) -> bytes:
+    """The PNG file of `array`, as bytes: (H, W) uint8 or uint16 gray,
+    (H, W, 3) uint8 RGB or (H, W, 4) uint8 RGBA.  Every row gets
+    `filter_type` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth); zlib
+    compresses at level 1, fast to write and to read."""
     arr = np.asarray(array)
     if arr.dtype == np.uint16 and arr.ndim == 2:
         depth, channels = 16, 1
@@ -160,7 +160,7 @@ def write_png(path: str, array: np.ndarray, filter_type: int = 0) -> None:
         depth, channels = 8, 1 if arr.ndim == 2 else arr.shape[2]
         rows = arr.reshape(arr.shape[0], -1)
     else:
-        raise ValueError(f"write_png takes uint8 gray/RGB/RGBA or uint16 gray, got {arr.dtype} {arr.shape}")
+        raise ValueError(f"encode_png takes uint8 gray/RGB/RGBA or uint16 gray, got {arr.dtype} {arr.shape}")
     height, width = arr.shape[:2]
     bpp = channels * depth // 8
     filtered = _filter_rows(rows, filter_type, bpp)
@@ -171,6 +171,12 @@ def write_png(path: str, array: np.ndarray, filter_type: int = 0) -> None:
                 + struct.pack(">I", zlib.crc32(ctype + payload)))
 
     header = struct.pack(">IIBBBBB", width, height, depth, _COLOR_TYPE[channels], 0, 0, 0)
+    return (_SIGNATURE + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(body.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path: str, array: np.ndarray, filter_type: int = 0) -> None:
+    """Write `array` to `path` as encode_png encodes it."""
+    data = encode_png(array, filter_type)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + chunk(b"IHDR", header)
-                + chunk(b"IDAT", zlib.compress(body.tobytes(), 1)) + chunk(b"IEND", b""))
+        f.write(data)

@@ -125,7 +125,7 @@ def test_set_explicit_precision(loose_flags):
     assert dict(zip(_FLAGS, _flags())) == dict.fromkeys(_FLAGS, False)
 
 
-@pytest.mark.parametrize("entry", ["test_deepim", "train_net", "train_test"])
+@pytest.mark.parametrize("entry", ["test_deepim", "train_net", "train_test", "track_video", "gen_video"])
 def test_entry_points_set_precision(loose_flags, tmp_path, monkeypatch, entry):
     """Each entry point that builds a network sets the flags before it
     builds one: build_model and FlowNetDeepIM are replaced by a probe that
@@ -153,10 +153,20 @@ def test_entry_points_set_precision(loose_flags, tmp_path, monkeypatch, entry):
         call = lambda: t_test_net.test_deepim(cfg, output_dir=str(tmp_path), device="cpu")  # noqa: E731
     elif entry == "train_net":
         call = lambda: t_train_net.train_net(cfg, output_dir=str(tmp_path), device="cpu")  # noqa: E731
-    else:
+    elif entry == "train_test":
         monkeypatch.setattr(t_train_test, "load_config", lambda path: cfg)
         monkeypatch.setattr(t_train_test, "train_net", lambda cfg, device: probe())
         call = lambda: t_train_test.main(["--cfg", "unused.yaml", "--device", "cpu"])  # noqa: E731
+    else:  # the tracking and video CLIs
+        import deepim_tpu_torch.toolkit.gen_video as mod
+        import deepim_tpu_torch.tools.track_video as t_track_video
+
+        if entry == "track_video":
+            mod = t_track_video
+        monkeypatch.setattr(mod, "load_config", lambda path: cfg)
+        monkeypatch.setattr(mod, "build_model", probe)
+        argv = ["--cfg", "unused.yaml", "--cls", "cube", "--device", "cpu"]
+        call = lambda: mod.main(argv + ([] if entry == "track_video" else ["--out", "v.avi"]))  # noqa: E731
     with pytest.raises(Built):
         call()
     assert seen == [(False, False, False)]

@@ -50,6 +50,7 @@ from deepim_tpu_torch.models import FlowNetDeepIM, state_dict_from_flax  # noqa:
 import deepim_tpu_torch.tools.test_net as t_test_net  # noqa: E402
 from deepim_tpu_torch.tools.test_net import test_deepim as t_test_deepim  # noqa: E402
 from deepim_tpu_torch.tools.train_net import build_mesh_bank, build_model  # noqa: E402
+from deepim_tpu_torch.utils.avi import read_avi_index  # noqa: E402
 from deepim_tpu_torch.utils.logger import logger as t_logger  # noqa: E402
 
 torch.set_num_threads(2)
@@ -386,10 +387,25 @@ def test_precomputed_poses_equal(devkit, tmp_path, flag):
     assert set(t_res["pose"]["sphere"]) == {0}
 
 
+def test_vis_video_writes_videos(devkit, weights, tmp_path):
+    """TEST.VIS_VIDEO: test_deepim writes video_cube.avi and
+    video_sphere.avi, each num_pairs x test_iter frames (the devkit's 5
+    pairs a class of the default 8, 4 iterations), and writes them again
+    when a rerun serves pred_eval from results_pose.pkl."""
+    _, tc = _cfgs(devkit, VIS_VIDEO=True, FAST_TEST=True)
+    model = _fast_model(weights[1])
+    for rerun in (False, True):
+        res = t_test_deepim(tc, output_dir=str(tmp_path), batch_size=4, device="cpu", model=model)
+        assert ("run" in res) != rerun  # the rerun read the cached poses
+        for cls in CLASSES:
+            path = tmp_path / f"video_{cls}.avi"
+            idx = read_avi_index(str(path))
+            assert (idx["frames"], idx["height"], idx["width"]) == (5 * 4, 2 * H, 2 * W)
+            assert res["videos"][cls]["frames"] == 20
+            path.unlink()
+
+
 def test_unported_options_raise(devkit, tmp_path):
-    _, tc = _cfgs(devkit, VIS_VIDEO=True)
-    with pytest.raises(NotImplementedError, match="VIS_VIDEO"):
-        t_test_deepim(tc, output_dir=str(tmp_path), device="cpu")
     _, tc = _cfgs(devkit)
     with pytest.raises(NotImplementedError, match="test_modelnet"):
         t_test_deepim(update_config_dict(tc, {"dataset": {"dataset": "ModelNet40"}}),
