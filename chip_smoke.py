@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of deepim_tpu_torch, the PyTorch/CUDA port.
 
-    python3 chip_smoke.py        # one CUDA device, nvcc on PATH or in $CUDA_HOME
+    python3 chip_smoke.py               # every phase: one CUDA device, nvcc on PATH or in $CUDA_HOME
+    python3 chip_smoke.py --phases 12   # phase 1 (device, build) and phase 12 alone, e.g. on four cards
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device and build: the card's name and power limit, torch's CUDA
@@ -127,6 +128,33 @@ Phases (each raises on failure; the script then exits non-zero):
      csr_raster launched the
      videos' planned count and nothing else; the seconds per video split
      into render, Canny and compose, and PNG encode.
+ 12. data parallelism: `python -m torch.distributed.run --standalone
+     --nproc_per_node W chip_smoke.py --dp-rank <spec>` starts W ranks of
+     the port's own entry points, one card each over NCCL where there are
+     two cards or more (W = the cards), else two ranks sharing the one card
+     over gloo (correctness only: no rate of that case is a scaling
+     figure).  Each rank joins through parallel.initialize_distributed and
+     (i) runs train_net on phase 9's recipe and devkit at a global batch of
+     4 x W pairs (on gloo one epoch of the real set, 8 steps; on NCCL two
+     epochs of both sets, the second timed as phase 9 times its epoch 2),
+     then counts the host syncs of one DDP step and of one step alone (on
+     NCCL also the cost of a DDP step: one gradient-sized all-reduce, DDP
+     steps against steps alone on every rank at once, one DDP step under
+     the profiler, and an epoch's rows stepped through without the loader); (ii) tracks W videos of the sphere (phase 11's
+     orbit, each starting 8 frames later, frame 0 perturbed; 64 frames x 2
+     iterations) with track_video_sharded, one a rank.  Checked: each
+     rank's current card is its LOCAL_RANK's and every launch landed
+     there; exactly the planned csr_raster launches on each rank and no
+     other kernel; the ranks' parameters bit-equal (a hash) and their
+     metrics equal; checkpoints written once, by rank 0; losses finite, no
+     dropped pair; the parameters and losses against one process training
+     on the global batch within 3x that process's own bf16-vs-fp32 gap
+     (phase 7's bf16 rule: param_ratio, gap_ratio); each video's sharded track against its one-process track by
+     phase 11's rule.  (iii) csr_raster held against its twin at rank 0's
+     first render.  It prints `nvidia-smi topo -m`, samples/s per rank and
+     epoch with the time blocked on the loader, the host syncs, the
+     sharded track's frames/s against one process tracking the W videos as
+     one batch, and on NCCL the scaling against one card (phase 9's cell).
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -517,6 +545,7 @@ def drive_main_path(label: str, scene, model, dev, card: str, expect: str, min_p
 
 _FAMILIES = (
     ("raster kernels", ("csr_raster", "csr_planes_raster", "tile_raster")),
+    ("collectives", ("nccl",)),
     ("convolutions", ("conv", "xmma", "fprop", "implicit", "winograd", "cudnn", "dgrad", "wgrad",
                       "bprop", "backward")),
     ("matmuls", ("gemm", "cutlass", "cublas", "bmm")),
@@ -1637,11 +1666,461 @@ def drive_vis_video(dev, card: str) -> dict:
     return {"launches": counts["csr_raster"], **checks}
 
 
-def main() -> int:
+# Phase 12: data parallelism over torch.distributed ranks.
+PHASE12_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase12")
+DP_LAUNCH_TIMEOUT = 600  # seconds for the ranks' launch
+DP_SHIFT = 8             # orbit frames between the starts of two videos of the sharded track
+DP_COST_STEPS = 4        # timed DDP steps, and steps alone, on each rank (NCCL only)
+
+
+def dp_world() -> tuple[int, str]:
+    """Phase 12's ranks and backend: one rank a card over NCCL on two cards
+    or more; on one card two ranks sharing it over gloo, which holds the
+    multi-rank logic on the card and gives no scaling figure."""
+    cards = torch.cuda.device_count()
+    return (cards, "nccl") if cards >= 2 else (2, "gloo")
+
+
+def dp_train_config(devkit: str, epochs: int, batch_pairs: int = TRAIN_B, real_only: bool = False):
+    """Phase 9's recipe and devkit for `epochs` epochs, batch_pairs a
+    process (train_net's global batch: batch_pairs x the ranks); with
+    real_only, the LM6D_REFINE set alone (half the pairs)."""
+    cfg = train_driver_config(devkit, os.path.join(PHASE12_DIR, "output"), end_epoch=epochs,
+                              BATCH_PAIRS=batch_pairs)
+    if real_only:
+        cfg = update_config_dict(cfg, {"dataset": {"dataset": "LM6D_REFINE", "image_set": "train_"}})
+    return cfg
+
+
+def dp_videos(cfg, world: int, dev):
+    """World videos of the 20,480-face sphere on phase 11's orbit, video j
+    starting DP_SHIFT x j frames into it, each frame-0 pose perturbed as
+    synth_data perturbs it: frames (TRACK_T, world, 3, H, W) rendered on
+    `dev`, the meshes, k and pose0 (world, 3, 4)."""
+    from deepim_tpu_torch.engine.refine import render_at_pose
+    from deepim_tpu_torch.tools.synth_data import sample_perturbed_pose
+
+    bank = build_mesh_bank(cfg)
+    ecfg = EngineConfig.from_config(cfg, bank_arrays=bank, device=dev)
+    sphere = list(cfg.dataset.class_name).index("sphere")
+    orbit = orbit_poses(TRACK_T + DP_SHIFT * (world - 1))
+    poses = np.stack([orbit[DP_SHIFT * j:DP_SHIFT * j + TRACK_T] for j in range(world)], 1)
+    k = torch.from_numpy(LINEMOD_K).to(dev)
+    one = MeshBuffers.gather(bank, np.full(TRACK_T, sphere), device=dev)
+    frames = torch.stack([render_at_pose(one, torch.from_numpy(poses[:, j]).to(dev), k, ecfg, device=dev)[0]
+                          for j in range(world)], 1)
+    rng = np.random.RandomState(11)
+    pose0 = torch.from_numpy(np.stack([sample_perturbed_pose(poses[0, j], rng) for j in range(world)]).astype(
+        np.float32)).to(dev)
+    return frames, MeshBuffers.gather(bank, np.full(world, sphere), device=dev), k, pose0, ecfg
+
+
+def dp_rank_main(spec_file: str) -> int:
+    """One rank of phase 12, started by torch.distributed.run: joins the
+    group (initialize_distributed with the spec's backend), trains, tracks,
+    writes its figures to <PHASE12_DIR>/rank<r>.json and leaves."""
+    from deepim_tpu_torch.parallel import initialize_distributed, shutdown_distributed
+
+    with open(spec_file) as f:
+        spec = json.load(f)
+    if not initialize_distributed(backend=spec["backend"]):
+        raise RuntimeError("chip_smoke --dp-rank: no torch.distributed launcher environment")
+    try:
+        dp_rank(spec)
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def dp_rank(spec: dict) -> None:
+    """Phase 12 (i) and (ii) on this rank (see drive_dp)."""
+    import hashlib
+
+    from deepim_tpu_torch.data.loader import TrainLoader
+    from deepim_tpu_torch.engine.tester import bank_on_device
+    from deepim_tpu_torch.engine.tracker import track_video_sharded
+    from deepim_tpu_torch.parallel import make_mesh, train_step_dp
+    from deepim_tpu_torch.tools.train_net import load_pairdbs
+
+    mesh = make_mesh()
+    dev = mesh.device
+    set_explicit_precision()
+    rk.load_library()
+    cfg = dp_train_config(spec["devkit"], spec["epochs"], real_only=spec["real_only"])
+    init = build_model(cfg, device="cpu").state_dict()
+    saves = []
+    save = train_net_mod.save_checkpoint
+    train_net_mod.save_checkpoint = lambda *a: saves.append(a[1]) or save(*a)
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    state = train_net(cfg, output_dir=spec["train_dir"], device=dev, init_state_dict=init)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_net_mod.save_checkpoint = save
+    counts = launch_counts()
+    by_device = {name: dict(KERNELS[name].launches_by_device) for name in KERNELS}
+    params = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    digest = hashlib.sha256(b"".join(v.numpy().tobytes() for v in params.values())).hexdigest()
+    if mesh.rank == 0:
+        torch.save(params, os.path.join(PHASE12_DIR, "params.pt"))
+
+    # Host synchronisations of one DDP step and of one step of this rank
+    # alone, on a fresh network (a second DDP replica of the trained one
+    # would share its parameters' gradient hooks).
+    dbs, pairdb = load_pairdbs(cfg)
+    bank = build_mesh_bank(cfg)
+    loader = TrainLoader(pairdb, cfg, {c: dbs[0].points(c) for c in cfg.dataset.class_name},
+                         cfg.TRAIN.BATCH_PAIRS * mesh.size, process_index=mesh.rank, process_count=mesh.size)
+    batches = loader.epoch(0)
+    batch = next(batches)
+    batches.close()
+    ecfg = EngineConfig.from_config(cfg, train=True, bank_arrays=bank, device=dev)
+    bank_d = bank_on_device(bank, dev)
+    net = build_model(cfg, device=dev).train()
+    fresh = TrainState(net, make_optimizer(net.parameters(), cfg.TRAIN, lambda count: cfg.TRAIN.lr))
+    step = make_train_step(ecfg, cfg.train_iter, cfg.TRAIN.FLOW_WEIGHT_TYPE, device=dev)
+    dp_step = train_step_dp(step, mesh, fresh)
+    dp_step(fresh, batch, bank_d)  # warm-up
+    syncs_dp = host_syncs(lambda: dp_step(fresh, batch, bank_d))
+    syncs_one = host_syncs(lambda: step(fresh, batch, bank_d))
+    costs = None
+    if spec["backend"] == "nccl":
+        costs = dp_step_costs(mesh, fresh, batch, bank_d, step, dp_step)
+        # An epoch's rows assembled first, then stepped through without the
+        # loader's threads beside the steps: DDP, then this rank alone.
+        epoch_rows = list(loader.epoch(1))
+        for kind, fn in (("dp_epoch_ms", dp_step), ("alone_epoch_ms", step)):
+            mesh.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for rows in epoch_rows:
+                fn(fresh, rows, bank_d)
+            torch.cuda.synchronize()
+            costs[kind] = (time.perf_counter() - t0) * 1e3 / len(epoch_rows)
+
+    # (ii) The sharded track.
+    frames, meshes, k, pose0, tecfg = dp_videos(cfg, mesh.size, dev)
+    model = make_model(True, 13, dev, hw=(H, W), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, poses = track_video_sharded(model, frames, meshes, k, pose0, tecfg, mesh=mesh,
+                                       iters_per_frame=TRACK_ITERS)
+    torch.cuda.synchronize()
+    track_s = time.perf_counter() - t0
+    if mesh.rank == 0:
+        np.save(os.path.join(PHASE12_DIR, "track_poses.npy"), poses.cpu().numpy())
+    out = {
+        "rank": mesh.rank, "local_rank": int(os.environ["LOCAL_RANK"]), "current_device": torch.cuda.current_device(),
+        "device": str(dev), "param_device": str(next(state.model.parameters()).device), "counts": counts,
+        "by_device": by_device, "digest": digest, "saves": saves, "train_s": train_s, "step": state.step,
+        "epochs": [{key: (v.tolist() if isinstance(v, np.ndarray) else v) for key, v in e.items() if key != "metrics"}
+                   for e in state.epochs],
+        "metrics": [{key: v.tolist() for key, v in e["metrics"].items()} for e in state.epochs],
+        "syncs_dp_step": syncs_dp, "syncs_one_step": syncs_one, "costs": costs, "track_counts": launch_counts(),
+        "track_by_device": {name: dict(KERNELS[name].launches_by_device) for name in KERNELS}, "track_s": track_s,
+    }
+    with open(os.path.join(PHASE12_DIR, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_step_costs(mesh, state, batch, bank_d, step, dp_step) -> dict:
+    """What a DDP step pays over one step of this rank alone, every rank at
+    once: one all-reduce of a gradient-sized fp32 tensor (the median of 5,
+    CUDA events), DP_COST_STEPS DDP steps and as many steps alone in turns
+    (host clock, each between barriers), and one DDP step under the
+    profiler (breakdown: the collectives' device ms, busy and wall)."""
+    import torch.distributed as dist
+
+    grads = torch.ones(sum(p.numel() for p in state.model.parameters()), device=mesh.device)
+    ar_ms = []
+    for _ in range(6):
+        mesh.barrier()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dist.all_reduce(grads)
+        end.record()
+        end.synchronize()
+        ar_ms.append(start.elapsed_time(end))
+    times = {"dp": [], "alone": []}
+    for kind in ("dp", "alone", "alone", "dp") * (DP_COST_STEPS // 2):
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (dp_step if kind == "dp" else step)(state, batch, bank_d)
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t0) * 1e3)
+    fam = breakdown(f"dp step rank {mesh.rank}", lambda: dp_step(state, batch, bank_d), card_line())
+    return {"allreduce_ms": statistics.median(ar_ms[1:]), "allreduce_bytes": 4 * grads.numel(),
+            "dp_ms": times["dp"], "alone_ms": times["alone"], "profile": fam}
+
+
+def hold_track(label: str, got: np.ndarray, ref: np.ndarray, nudged) -> str:
+    """Phase 11's rule for a track against a reference: frame by frame
+    within SMALL_TRACK_TOL up to the first departure, which may come no
+    earlier than the reference's own from `nudged()` (its track from frame
+    0's pose moved by ROUNDING_NUDGE), then within twice that gap.
+    Returns what held."""
+    err = frame_errors(got, ref)
+    dep = first_departure(err, SMALL_TRACK_TOL)
+    if dep is None:
+        return f"every frame within {SMALL_TRACK_TOL} (max {err.max():.3g})"
+    gap = frame_errors(nudged(), ref)
+    ref_dep = first_departure(gap, SMALL_TRACK_TOL)
+    if ref_dep is None or dep < ref_dep or err[ref_dep:].max() > 2 * gap[ref_dep:].max():
+        raise AssertionError(f"{label}: departs at frame {dep}, the reference from itself at {ref_dep}; err "
+                             f"{err.max()}, its own gap {gap.max()}")
+    return f"departs at frame {dep} (the reference from itself at {ref_dep}), err {err[ref_dep:].max():.3g}"
+
+
+def drive_dp(dev, card: str) -> dict:
+    """Phase 12 (see the module docstring).  Returns csr_raster's check at
+    rank 0's first training render with the ranks' launches."""
+    from deepim_tpu_torch.data.loader import TrainLoader
+    from deepim_tpu_torch.engine.tracker import make_tracker
+    from deepim_tpu_torch.tools.train_net import load_pairdbs
+
+    world, backend = dp_world()
+    label = f"dp {backend} x{world}"
+    shutil.rmtree(PHASE12_DIR, ignore_errors=True)
+    os.makedirs(PHASE12_DIR)
+    devkit = os.path.join(PHASE9_DIR, "devkit")
+    if not os.path.isdir(devkit):
+        write_devkit(devkit, TRAIN_PAIRS, TRAIN_VAL_PAIRS, dev, card, label)
+    # On gloo (a shared card: correctness only) one epoch of the real set,
+    # 8 steps; on NCCL two epochs of both sets, the second timed as phase 9
+    # times its epoch 2.
+    real_only = backend == "gloo"
+    epochs = 1 if real_only else 2
+    for cmd in (["nvidia-smi", "topo", "-m"], ["nvidia-smi", "nvlink", "--status"]):
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        text = (res.stdout + res.stderr).strip()
+        links = [line.strip() for line in text.splitlines() if line.strip().startswith("Link ")]
+        if links:  # one card's links, and how many cards list as many
+            text = (f"{text.count('GPU ')} cards; the first: {len(links) // max(text.count('GPU '), 1)} links, "
+                    f"{links[0]}")
+        log(f"[{label}] {' '.join(cmd)} (exit {res.returncode}): {text[:2000]}")
+    cards = torch.cuda.device_count()
+    log(f"[{label}] peer access between the cards (torch.cuda.can_device_access_peer): "
+        f"{[[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(cards)] for i in range(cards)]}")
+    cfg = dp_train_config(devkit, epochs, TRAIN_B * world, real_only)  # one process on the global batch
+    classes, n_inner = list(cfg.dataset.class_name), cfg.network.TRAIN_ITER_SIZE
+    global_b = cfg.TRAIN.BATCH_PAIRS
+    steps = epochs * ((1 if real_only else 2) * len(classes) * TRAIN_PAIRS // global_b)
+
+    # (iii) Rank 0's first render: its plan, and csr_raster held against its twin there.
+    dbs, pairdb = load_pairdbs(cfg)
+    loader = TrainLoader(pairdb, cfg, {c: dbs[0].points(c) for c in classes}, global_b, process_index=0,
+                         process_count=world)
+    batches = loader.epoch(0)
+    first = next(batches)
+    batches.close()
+    bank = build_mesh_bank(cfg)
+    ecfg = EngineConfig.from_config(cfg, train=True, bank_arrays=bank)
+    m = MeshBuffers.gather(bank, first.class_index, device=dev)
+    plan = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, first.pose_rendered, first.k, ecfg.raster,
+                         corners=m.corners, corner_colors=m.corner_colors, device=dev)
+    if {name for name, _ in plan} != {"csr_raster"}:
+        raise AssertionError(f"{label}: rank 0's render plans {[name for name, _ in plan]}")
+    kernel = check_kernel("csr_raster", plan[0][1], card, shape=f"{label} rank 0's render")
+    del kernel["out"]
+
+    spec = {"backend": backend, "devkit": devkit, "epochs": epochs, "real_only": real_only,
+            "train_dir": os.path.join(PHASE12_DIR, "train")}
+    spec_file = os.path.join(PHASE12_DIR, "spec.json")
+    with open(spec_file, "w") as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(world),
+           os.path.join(ROOT, "chip_smoke.py"), "--dp-rank", spec_file]
+    rank_log = os.path.join(PHASE12_DIR, "ranks.log")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with open(rank_log, "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, cwd=ROOT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DP_LAUNCH_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            rc = "killed at the time limit"
+    launch_s = time.perf_counter() - t0
+    if rc != 0:
+        with open(rank_log) as f:
+            tail = f.read()[-8000:]
+        raise AssertionError(f"{label}: the ranks' launch ended with {rc}:\n{tail}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(PHASE12_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    # (i) Launches, cards, replicas, checkpoints, losses.
+    expect = len(plan) * n_inner * steps
+    for r in ranks:
+        where = f"{label} rank {r['rank']}"
+        card_r = r["local_rank"] % cards
+        if (r["current_device"], r["device"], r["param_device"]) != (card_r, f"cuda:{card_r}", f"cuda:{card_r}"):
+            raise AssertionError(f"{where}: current device {r['current_device']}, mesh device {r['device']}, "
+                                 f"parameters on {r['param_device']}, want card {card_r}")
+        if r["counts"] != {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": 0} or \
+                r["by_device"]["csr_raster"] != {str(card_r): expect}:
+            raise AssertionError(f"{where}: launches {r['counts']} on cards {r['by_device']}, want csr_raster "
+                                 f"{expect} ({len(plan)} a render x {n_inner} inner iterations x {steps} steps) "
+                                 f"on card {card_r} and nothing else")
+        if r["digest"] != ranks[0]["digest"] or r["metrics"] != ranks[0]["metrics"]:
+            raise AssertionError(f"{where}: parameters or metrics differ from rank 0's")
+        if r["saves"] != (list(range(1, epochs + 1)) if r["rank"] == 0 else []):
+            raise AssertionError(f"{where}: saved checkpoints {r['saves']}")
+        if r["step"] != steps * n_inner:
+            raise AssertionError(f"{where}: {r['step']} inner iterations, want {steps * n_inner}")
+        for e in r["epochs"]:
+            if e["nonfinite_losses"] or e["raster_dropped"] or e["samples"] != steps // epochs * global_b:
+                raise AssertionError(f"{where}: epoch {e['epoch']}: {e}")
+    ckpts = sorted(os.listdir(os.path.join(spec["train_dir"], f"{cfg.TRAIN.model_prefix}_ckpt")))
+    if ckpts != [str(e) for e in range(1, epochs + 1)]:
+        raise AssertionError(f"{label}: checkpoint directory holds {ckpts}")
+
+    # Against one process training on the same global batch, bf16 (the
+    # driver's default) and fp32 (the scale of phase 7's bf16 rule).
+    init = build_model(cfg, device="cpu").state_dict()
+    ddp = torch.load(os.path.join(PHASE12_DIR, "params.pt"), weights_only=True)
+    refs = {}
+    for mode in ("bf16", "fp32"):
+        with driver_precision(mode):
+            st = train_net(cfg, output_dir=os.path.join(PHASE12_DIR, f"one_{mode}"), device=dev,
+                           init_state_dict=init)
+        refs[mode] = ({k: v.cpu() for k, v in st.model.state_dict().items()}, st.epochs)
+    ratio, worst = param_ratio(ddp, refs["bf16"][0], refs["fp32"][0], init)
+    losses = {key: [np.asarray([e[key] for e in ranks[0]["metrics"]])] + [
+        np.stack([e["metrics"][key] for e in refs[mode][1]]) for mode in ("bf16", "fp32")]
+        for key in ("pm_loss", "flow_loss", "mask_loss", "total")}
+    loss_ratio = max(gap_ratio(*v) for v in losses.values())
+    if ratio > BF16_GAP_FACTOR or loss_ratio > BF16_GAP_FACTOR or \
+            not all(np.isfinite(v[0]).all() for v in losses.values()):
+        raise AssertionError(f"{label}: DDP vs one process on the global batch: parameters {ratio} ({worst}), "
+                             f"losses {loss_ratio} of the bf16-vs-fp32 gap (limit {BF16_GAP_FACTOR})")
+
+    # (ii) The sharded track against world one-process tracks of the same
+    # videos, and one process tracking them as one batch.
+    frames, meshes, k, pose0, tecfg = dp_videos(cfg, world, dev)
+    model = make_model(True, 13, dev, hw=(H, W), dtype=torch.bfloat16)
+    sharded = np.load(os.path.join(PHASE12_DIR, "track_poses.npy"))
+    notes = []
+    with torch.no_grad():
+        track = make_tracker(model, tecfg, TRACK_ITERS, device=dev)
+        for j in range(world):
+            one = track(frames[:, j:j + 1], MeshBuffers(*(None if x is None else x[j:j + 1] for x in meshes)), k,
+                        pose0[j:j + 1])[1][:, 0].cpu().numpy()
+
+            def nudged(j=j):
+                p = pose0[j:j + 1].clone()
+                p[:, :, 3] += ROUNDING_NUDGE
+                return track(frames[:, j:j + 1], MeshBuffers(*(None if x is None else x[j:j + 1] for x in meshes)),
+                             k, p)[1][:, 0].cpu().numpy()
+
+            notes.append(hold_track(f"{label} video {j}", sharded[:, j], one, nudged))
+        track(frames, meshes, k, pose0)  # warm-up at batch world
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batched = track(frames, meshes, k, pose0)[1]
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t0
+    if not np.isfinite(sharded).all() or sharded.shape != (TRACK_T, world, 3, 4):
+        raise AssertionError(f"{label}: sharded track {sharded.shape}, finite {np.isfinite(sharded).all()}")
+    track_expect = TRACK_T * TRACK_ITERS
+    for r in ranks:
+        card_r = str(r["local_rank"] % cards)
+        if r["track_counts"] != {"csr_raster": track_expect, "csr_planes_raster": 0, "tile_raster": 0} or \
+                r["track_by_device"]["csr_raster"] != {card_r: track_expect}:
+            raise AssertionError(f"{label} rank {r['rank']}: track launches {r['track_counts']} on cards "
+                                 f"{r['track_by_device']}, want csr_raster {track_expect} on card {card_r}")
+
+    # Figures.
+    for r in ranks:
+        for e in r["epochs"]:
+            log(f"[{label}] rank {r['rank']} epoch {e['epoch']}: {e['samples']} samples (global) in "
+                f"{e['loop_s']:.3f} s, {e['samples'] / e['loop_s']:.2f} samples/s; blocked on the loader "
+                f"{e['wait_s']:.3f} s, in train steps {e['step_s']:.3f} s; checkpoint {e['checkpoint_s']:.3f} s "
+                f"[{card}]")
+        log(f"[{label}] rank {r['rank']}: host syncs of one DDP step ({n_inner} inner iterations) "
+            f"{sum(r['syncs_dp_step'].values())} ({r['syncs_dp_step']}); of one step of this rank alone "
+            f"{sum(r['syncs_one_step'].values())} [{card}]")
+    last = ranks[0]["epochs"][-1]
+    log(f"[{label}] train_net over {world} ranks ({backend}), global batch {global_b} ({global_b // world} a rank), "
+        f"{epochs} epoch(s) of {steps // epochs} steps x {n_inner} inner iterations: launch {launch_s:.1f} s, "
+        f"train_net {ranks[0]['train_s']:.3f} s on rank 0; csr_raster {expect} launches on each rank's own card; "
+        f"parameters bit-equal over the ranks; checkpoints {ckpts} written by rank 0 alone; every loss finite, 0 "
+        f"dropped pairs; against one process on the global batch: parameters {ratio:.3g} ({worst}), losses "
+        f"{loss_ratio:.3g} of its bf16-vs-fp32 gap (limit {BF16_GAP_FACTOR}) [{card}]")
+    agg = TRACK_T * world / ranks[0]["track_s"]
+    log(f"[{label}] track_video_sharded: {world} videos x {TRACK_T} frames x {TRACK_ITERS} iterations, one a rank: "
+        f"{ranks[0]['track_s']:.3f} s on rank 0, {agg:.2f} tracked frames/s in all; one process tracking them as "
+        f"one batch of {world}: {batched_s:.3f} s, {TRACK_T * world / batched_s:.2f} frames/s; {track_expect} "
+        f"csr_raster launches on each rank's own card; each video against its one-process track: "
+        f"{'; '.join(notes)} [{card}]")
+    if backend == "nccl":
+        for r in ranks:
+            c = r["costs"]
+            gb = c["allreduce_bytes"] / 1e9
+            log(f"[{label}] rank {r['rank']}: all_reduce of {gb:.3f} GB (the fp32 gradients) "
+                f"{c['allreduce_ms']:.3f} ms, bus {2 * (world - 1) / world * gb / c['allreduce_ms'] * 1e3:.1f} GB/s; "
+                f"DDP step {statistics.median(c['dp_ms']):.1f} ms against {statistics.median(c['alone_ms']):.1f} ms "
+                f"for this rank's step alone, every rank at once (medians of {c['dp_ms']} and {c['alone_ms']}); "
+                f"one DDP step under the profiler: collectives {c['profile']['collectives']:.2f} ms, busy "
+                f"{c['profile']['busy']:.2f} of {c['profile']['wall']:.2f} ms; an epoch's rows assembled first: "
+                f"{c['dp_epoch_ms']:.1f} ms a DDP step, {c['alone_epoch_ms']:.1f} ms a step alone; in train_net's "
+                f"epoch {r['epochs'][-1]['epoch']}: {r['epochs'][-1]['step_s'] / (steps // epochs) * 1e3:.1f} ms "
+                f"a step [{card}]")
+        # W = 1: phase 9's cell, batch 4 on one card, timed on its second epoch.
+        st = train_net(dp_train_config(devkit, 2), output_dir=os.path.join(PHASE12_DIR, "one_card"), device=dev)
+        e = st.epochs[-1]
+        log(f"[{label}] scaling: epoch {last['epoch']} {last['samples'] / last['loop_s']:.2f} samples/s over "
+            f"{world} cards against {e['samples'] / e['loop_s']:.2f} on one (batch {TRAIN_B}, epoch 2): "
+            f"{last['samples'] / last['loop_s'] / (e['samples'] / e['loop_s']):.2f}x [{card}]")
+    kernel.update(launches=expect, world=world)
+    return kernel
+
+
+ALL_PHASES = set(range(1, 13))
+KERNEL_PHASES = set(range(2, 7))  # phase 2's scenes carry phases 3-6: they run together
+
+
+def parse_phases(text: str) -> set:
+    """'12', '2-6,12' or '1-12' -> the phases to run.  Phase 1 (the device
+    and the build) always runs; phases 2-6 run together; phase 11 (its
+    videos) reads phase 8's cached run."""
+    phases = {1}
+    for part in text.split(","):
+        lo, _, hi = part.partition("-")
+        phases.update(range(int(lo), int(hi or lo) + 1))
+    if not phases <= ALL_PHASES:
+        raise SystemExit(f"chip_smoke: phases {sorted(phases - ALL_PHASES)} do not exist")
+    if phases & KERNEL_PHASES and not KERNEL_PHASES <= phases:
+        raise SystemExit("chip_smoke: phases 2-6 run together")
+    if 11 in phases and 8 not in phases:
+        raise SystemExit("chip_smoke: phase 11 needs phase 8")
+    return phases
+
+
+def main(argv: list | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-card smoke run of deepim_tpu_torch")
+    ap.add_argument("--phases", default="1-12", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
+                    "always runs, 2-6 run together, 11 needs 8)")
+    ap.add_argument("--dp-rank", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 12
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA device",
               file=sys.stderr)
         return 1
+    if args.dp_rank:
+        return dp_rank_main(args.dp_rank)
+    phases = parse_phases(args.phases)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
@@ -1650,11 +2129,11 @@ def main() -> int:
     log(card)
     set_explicit_precision()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, cuDNN {torch.backends.cudnn.version()}, device "
-        f"{torch.cuda.get_device_name(0)}; set_explicit_precision: "
+        f"{torch.cuda.get_device_name(0)} (x{torch.cuda.device_count()}); set_explicit_precision: "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
         f"allow_bf16_reduced_precision_reduction="
-        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}; phases {sorted(phases)}")
     t0 = time.perf_counter()
     rk.load_library()
     log(f"[build] raster.cu: {time.perf_counter() - t0:.2f} s (nvcc {rk.BUILD_INFO['seconds']:.2f} s) [{card}]")
@@ -1662,128 +2141,150 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
 
-    # 2. Kernels against their plain twins at their paths' shapes.
-    k = torch.from_numpy(LINEMOD_K)
-    csr_scene = build_scene(16, H, W, LINEMOD_K, num_iters=4, mesh_detail=5, active_tiles=32, device=dev)
-    dense_scene = build_scene(2, H, W, LINEMOD_K, num_iters=4, mesh_detail=2, device=dev)
-    train_scene, train_ecfg, batch = train_setup(dev)
-    heavy_scene = build_scene(16, H, W, LINEMOD_K, num_iters=4, mesh_detail=3,
-                              max_faces_per_tile=HEAVY_K_CAP, device=dev)
     results = {}
-    for name, shape, sc, ecfg in (("csr_raster", "", csr_scene, csr_scene.ecfg),
-                                  ("csr_planes_raster", "", train_scene, train_ecfg),
-                                  ("tile_raster", "", dense_scene, dense_scene.ecfg),
-                                  ("tile_raster", "heavy", heavy_scene, heavy_scene.ecfg)):
-        m = sc.meshes
-        launches = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(sc.pose0),
-                                 k, ecfg.raster, corners=m.corners, corner_colors=m.corner_colors,
-                                 device=dev)
-        got, args = launches[0]
-        if got != name:
-            raise AssertionError(f"scene meant for {name} plans {got}")
-        if sc is heavy_scene and int(args[2].max()) >= HEAVY_K_CAP:
-            raise AssertionError(f"heavy dense scene: a list reached the cap of {HEAVY_K_CAP} faces")
-        results[name, shape] = check_kernel(name, args, card, shape=shape)
-    heavy = results.pop(("tile_raster", "heavy"))
-    results = {name: r for (name, _), r in results.items()}
-    # The same training render through csr_raster: the two CSR kernels agree.
-    m = train_scene.meshes
-    (got, args), = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid,
-                                 torch.from_numpy(train_scene.pose0), k, train_scene.ecfg.raster,
-                                 corners=m.corners, corner_colors=m.corner_colors, device=dev)
-    slots8 = KERNELS[got](*args)
-    if got != "csr_raster" or not torch.equal(slots8, results["csr_planes_raster"]["out"]):
-        raise AssertionError("csr_planes_raster and csr_raster differ on the training render")
-    log(f"[csr_planes_raster] equals csr_raster on the training render (hits, face ids, q, rgb) [{card}]")
-    stress_check(card)
+    if 2 in phases:
+        # 2. Kernels against their plain twins at their paths' shapes.
+        k = torch.from_numpy(LINEMOD_K)
+        csr_scene = build_scene(16, H, W, LINEMOD_K, num_iters=4, mesh_detail=5, active_tiles=32, device=dev)
+        dense_scene = build_scene(2, H, W, LINEMOD_K, num_iters=4, mesh_detail=2, device=dev)
+        train_scene, train_ecfg, batch = train_setup(dev)
+        heavy_scene = build_scene(16, H, W, LINEMOD_K, num_iters=4, mesh_detail=3,
+                                  max_faces_per_tile=HEAVY_K_CAP, device=dev)
+        for name, shape, sc, ecfg in (("csr_raster", "", csr_scene, csr_scene.ecfg),
+                                      ("csr_planes_raster", "", train_scene, train_ecfg),
+                                      ("tile_raster", "", dense_scene, dense_scene.ecfg),
+                                      ("tile_raster", "heavy", heavy_scene, heavy_scene.ecfg)):
+            m = sc.meshes
+            launches = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(sc.pose0),
+                                     k, ecfg.raster, corners=m.corners, corner_colors=m.corner_colors,
+                                     device=dev)
+            got, args = launches[0]
+            if got != name:
+                raise AssertionError(f"scene meant for {name} plans {got}")
+            if sc is heavy_scene and int(args[2].max()) >= HEAVY_K_CAP:
+                raise AssertionError(f"heavy dense scene: a list reached the cap of {HEAVY_K_CAP} faces")
+            results[name, shape] = check_kernel(name, args, card, shape=shape)
+        heavy = results.pop(("tile_raster", "heavy"))
+        results = {name: r for (name, _), r in results.items()}
+        # The same training render through csr_raster: the two CSR kernels agree.
+        m = train_scene.meshes
+        (got, args), = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid,
+                                     torch.from_numpy(train_scene.pose0), k, train_scene.ecfg.raster,
+                                     corners=m.corners, corner_colors=m.corner_colors, device=dev)
+        slots8 = KERNELS[got](*args)
+        if got != "csr_raster" or not torch.equal(slots8, results["csr_planes_raster"]["out"]):
+            raise AssertionError("csr_planes_raster and csr_raster differ on the training render")
+        log(f"[csr_planes_raster] equals csr_raster on the training render (hits, face ids, q, rgb) [{card}]")
+        stress_check(card)
 
-    # 3. The eval main path on the CSR kernel in each precision, in turns;
-    # 4. the dense kernel; 5. the training path in each precision, in turns.
-    csr_models = {m: make_model(False, 0, dev, dtype=PRECISIONS[m][0]) for m in PRECISIONS}
-    dense_model = make_model(True, 1, dev)
-    eval_runs = {m: [] for m in PRECISIONS}
-    train_runs = {m: [] for m in PRECISIONS}
-    for mode in TURNS:
-        with precision(mode):
-            eval_runs[mode].append(drive_main_path(
-                f"main path {mode}, CSR (20,480-face meshes, FAST_TEST)", csr_scene, csr_models[mode], dev, card,
-                "csr_raster", min_per_call=4 * 2, ecfg=with_zoom(csr_scene.ecfg, mode), n_calls=N_TURN_CALLS))
-    counts_dense = drive_main_path("main path, dense (320-face meshes, full network)", dense_scene,
-                                   dense_model, dev, card, "tile_raster", min_per_call=4)["counts"]
-    for mode in TURNS:
-        with precision(mode):
-            train_runs[mode].append(drive_train(train_scene, train_ecfg, batch, dev, card, mode, N_TURN_CALLS))
-    for name, runs, unit in (("eval CSR call", eval_runs, "frames_s"), ("training step", train_runs, "samples_s")):
-        log(f"[precision turns] {name}: " + "; ".join(
-            f"{m} {[round(r['ms'], 2) for r in rs]} ms, {[round(r[unit], 2) for r in rs]} {unit.replace('_', '/')}"
-            for m, rs in runs.items()) + f" (turns {TURNS}) [{card}]")
-    results["csr_raster"]["launches"] = eval_runs["bf16"][0]["counts"]["csr_raster"]
-    results["tile_raster"]["launches"] = counts_dense["tile_raster"]
-    results["csr_planes_raster"]["launches"] = train_runs["bf16"][0]["counts"]["csr_planes_raster"]
+        # 3. The eval main path on the CSR kernel in each precision, in turns;
+        # 4. the dense kernel; 5. the training path in each precision, in turns.
+        csr_models = {m: make_model(False, 0, dev, dtype=PRECISIONS[m][0]) for m in PRECISIONS}
+        dense_model = make_model(True, 1, dev)
+        eval_runs = {m: [] for m in PRECISIONS}
+        train_runs = {m: [] for m in PRECISIONS}
+        for mode in TURNS:
+            with precision(mode):
+                eval_runs[mode].append(drive_main_path(
+                    f"main path {mode}, CSR (20,480-face meshes, FAST_TEST)", csr_scene, csr_models[mode], dev,
+                    card, "csr_raster", min_per_call=4 * 2, ecfg=with_zoom(csr_scene.ecfg, mode),
+                    n_calls=N_TURN_CALLS))
+        counts_dense = drive_main_path("main path, dense (320-face meshes, full network)", dense_scene,
+                                       dense_model, dev, card, "tile_raster", min_per_call=4)["counts"]
+        for mode in TURNS:
+            with precision(mode):
+                train_runs[mode].append(drive_train(train_scene, train_ecfg, batch, dev, card, mode,
+                                                    N_TURN_CALLS))
+        for name, runs, unit in (("eval CSR call", eval_runs, "frames_s"),
+                                 ("training step", train_runs, "samples_s")):
+            log(f"[precision turns] {name}: " + "; ".join(
+                f"{m} {[round(r['ms'], 2) for r in rs]} ms, {[round(r[unit], 2) for r in rs]} "
+                f"{unit.replace('_', '/')}" for m, rs in runs.items()) + f" (turns {TURNS}) [{card}]")
+        results["csr_raster"]["launches"] = eval_runs["bf16"][0]["counts"]["csr_raster"]
+        results["tile_raster"]["launches"] = counts_dense["tile_raster"]
+        results["csr_planes_raster"]["launches"] = train_runs["bf16"][0]["counts"]["csr_planes_raster"]
 
-    # 6. Where the time goes, in each precision.
-    for mode in PRECISIONS:
-        with precision(mode):
-            for label, fn, train, samples in (
-                    ("CSR path", refine_call(csr_scene, csr_models[mode], dev, with_zoom(csr_scene.ecfg, mode)),
-                     False, 16 * 4),
-                    ("training step", train_runs[mode][-1]["step"], True, TRAIN_B * TRAIN_ITER_SIZE)):
-                fam = breakdown(f"{label} {mode}", fn, card)
-                ops, b_ms = conv_bound_ms(mode, (H, W), 8, train, samples, train)
-                log(f"[{label} {mode} convolutions] {fam['convolutions']:.2f} device ms against a bound of "
-                    f"{b_ms:.3f} ms ({ops / 1e12:.2f} TFLOP at {PEAK_OPS_PER_S[mode] / 1e12:.0f} TFLOP/s dense "
-                    f"{mode}: {fam['convolutions'] / b_ms:.1f}x); busy {fam['busy']:.2f} of {fam['wall']:.2f} ms "
-                    f"[{card}]")
-    breakdown("dense path", refine_call(dense_scene, dense_model, dev), card)
-    render_comparison(csr_scene, dev, card)
+        # 6. Where the time goes, in each precision.
+        for mode in PRECISIONS:
+            with precision(mode):
+                for label, fn, train, samples in (
+                        ("CSR path", refine_call(csr_scene, csr_models[mode], dev, with_zoom(csr_scene.ecfg, mode)),
+                         False, 16 * 4),
+                        ("training step", train_runs[mode][-1]["step"], True, TRAIN_B * TRAIN_ITER_SIZE)):
+                    fam = breakdown(f"{label} {mode}", fn, card)
+                    ops, b_ms = conv_bound_ms(mode, (H, W), 8, train, samples, train)
+                    log(f"[{label} {mode} convolutions] {fam['convolutions']:.2f} device ms against a bound of "
+                        f"{b_ms:.3f} ms ({ops / 1e12:.2f} TFLOP at {PEAK_OPS_PER_S[mode] / 1e12:.0f} TFLOP/s "
+                        f"dense {mode}: {fam['convolutions'] / b_ms:.1f}x); busy {fam['busy']:.2f} of "
+                        f"{fam['wall']:.2f} ms [{card}]")
+        breakdown("dense path", refine_call(dense_scene, dense_model, dev), card)
+        render_comparison(csr_scene, dev, card)
 
-    # 7. Small-input reference checks.
-    for d in (PHASE8_DIR, PHASE9_DIR, PHASE11_DIR):
-        shutil.rmtree(d, ignore_errors=True)
-    small_reference_checks(dev)
-    small_driver_check(dev)
-    small_train_driver_check(dev)
+    if phases & {7, 8, 9, 11, 12}:
+        for d in (PHASE8_DIR, PHASE9_DIR, PHASE11_DIR):
+            shutil.rmtree(d, ignore_errors=True)
+    if 7 in phases:
+        # 7. Small-input reference checks.
+        small_reference_checks(dev)
+        small_driver_check(dev)
+        small_train_driver_check(dev)
 
     # 8. The eval driver through its front door; 9. the training driver;
     # 10. the engine's options at full width.
-    driver = drive_eval_driver(dev, card)
-    trainer = drive_train_driver(dev, card)
-    drive_options(dev, card)
+    driver = drive_eval_driver(dev, card) if 8 in phases else None
+    trainer = drive_train_driver(dev, card) if 9 in phases else None
+    if 10 in phases:
+        drive_options(dev, card)
 
-    # 11. Tracking and the refinement videos.
-    t11 = time.perf_counter()
-    small_track_check(dev)
-    tracks = drive_tracking(dev, card)
-    videos = drive_vis_video(dev, card)
-    log(f"[tracking] phase 11 took {time.perf_counter() - t11:.1f} s [{card}]")
+    tracks = videos = None
+    if 11 in phases:
+        # 11. Tracking and the refinement videos.
+        t11 = time.perf_counter()
+        small_track_check(dev)
+        tracks = drive_tracking(dev, card)
+        videos = drive_vis_video(dev, card)
+        log(f"[tracking] phase 11 took {time.perf_counter() - t11:.1f} s [{card}]")
+
+    dp = None
+    if 12 in phases:
+        # 12. Data parallelism: train_net and the sharded track over ranks.
+        t12 = time.perf_counter()
+        dp = drive_dp(dev, card)
+        log(f"[dp] phase 12 took {time.perf_counter() - t12:.1f} s [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
-    kernels = [
-        {
-            "name": name, "route": "cuda", "source": "deepim_tpu_torch/csrc/raster.cu",
-            "replaces": REPLACES[name], "launches": r["launches"], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-            # tile_raster's second shape (the heavy dense scene) and csr_raster's
-            # at the eval and training drivers' renders (with its launches
-            # there) ride on their entries.
-            **({f"heavy_{key}": heavy[key] for key in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
-                                                       "bound_by")} if name == "tile_raster" else {}),
-            **({f"{tag}_{key}": run[key] for tag, run in (("driver", driver), ("train_driver", trainer))
-                for key in CHECK_KEYS}
-               if name == "csr_raster" else {}),
-            # Phase 11: each kernel at the full-width track's render with the
-            # track's launches (sphere: csr_raster, cube: tile_raster), and
-            # csr_raster at each refinement video's render with the videos'.
-            **({f"track_{key}": tracks["sphere" if name == "csr_raster" else "cube"][key] for key in CHECK_KEYS}
-               if name != "csr_planes_raster" else {}),
-            **({"video_launches": videos["launches"]} if name == "csr_raster" else {}),
-            **({f"video_{cls}_{key}": videos[cls][key] for cls in ("cube", "sphere") for key in CHECK_KEYS
-                if key != "launches"} if name == "csr_raster" else {}),
-        }
-        for name, r in results.items()
-    ]
+    # The kernels line: each kernel's figures at phase 2's shapes with its
+    # launches on its path (phases 3-5), then its figures at each driver's
+    # renders as extra keys: tile_raster's heavy shape, csr_raster at the
+    # eval and training drivers' renders (phases 8, 9), each kernel at the
+    # full-width track's render (phase 11: sphere csr_raster, cube
+    # tile_raster) and csr_raster at each refinement video's, and csr_raster
+    # at rank 0's render of the data-parallel run (phase 12) with its
+    # launches on each rank and the ranks.  Without phase 2, phase 12's
+    # figures are csr_raster's own.
+    base = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+    if dp is not None and "csr_raster" not in results:
+        results["csr_raster"] = dict(dp)
+    kernels = []
+    for name, r in results.items():
+        entry = {"name": name, "route": "cuda", "source": "deepim_tpu_torch/csrc/raster.cu",
+                 "replaces": REPLACES[name], "launches": r["launches"], **{key: r[key] for key in base},
+                 "library_ms": None}
+        if name == "tile_raster":
+            entry.update({f"heavy_{key}": heavy[key] for key in base})
+        for tag, run in (("driver", driver), ("train_driver", trainer)):
+            if run is not None and name == "csr_raster":
+                entry.update({f"{tag}_{key}": run[key] for key in CHECK_KEYS})
+        if tracks is not None and name != "csr_planes_raster":
+            entry.update({f"track_{key}": tracks["sphere" if name == "csr_raster" else "cube"][key]
+                          for key in CHECK_KEYS})
+        if videos is not None and name == "csr_raster":
+            entry["video_launches"] = videos["launches"]
+            entry.update({f"video_{cls}_{key}": videos[cls][key] for cls in ("cube", "sphere") for key in base})
+        if dp is not None and name == "csr_raster":
+            entry.update({f"dp_{key}": dp[key] for key in CHECK_KEYS + ("world",)})
+        kernels.append(entry)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

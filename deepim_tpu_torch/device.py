@@ -8,14 +8,21 @@ import torch
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """Return `device` as a torch.device, raising if it names CUDA and no
     CUDA device is present (the port never falls back to the CPU on its
-    own: the caller asks for it with device="cpu")."""
+    own: the caller asks for it with device="cpu").  A CUDA device without
+    an index gets the current one (torch.cuda.current_device(), which
+    parallel.initialize_distributed sets to each rank's card), so tensors
+    and launches land on that card and compare equal to its tensors'
+    devices."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "deepim_tpu_torch: CUDA was requested (device=%r) but "
-            "torch.cuda.is_available() is False; pass device='cpu' to run "
-            "the plain PyTorch path" % (str(device),)
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "deepim_tpu_torch: CUDA was requested (device=%r) but "
+                "torch.cuda.is_available() is False; pass device='cpu' to run "
+                "the plain PyTorch path" % (str(device),)
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -5,7 +5,8 @@ The JAX tracker is one jitted lax.scan over frames; here the frames are a
 Python loop over `refine` that keeps every pose and dropped-pair count on
 the device, so the host never waits for the card inside the loop (refine's
 own iterations are the only work queued).  The batch dimension carries
-independent videos (or objects).
+independent videos (or objects), the axis track_video_sharded splits over
+the ranks of a parallel.Mesh.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from deepim_tpu_torch.device import resolve_device
 from deepim_tpu_torch.engine.refine import EngineConfig, MeshBuffers, Observation, refine
+from deepim_tpu_torch.parallel.mesh import Mesh, gather_batch, shard_pytree_batch
 
 
 def make_tracker(model: Any, ecfg: EngineConfig, iters_per_frame: int | None = None,
@@ -79,10 +81,22 @@ def make_tracker(model: Any, ecfg: EngineConfig, iters_per_frame: int | None = N
 
 
 def track_video_sharded(model: Any, frames, meshes: MeshBuffers, k, pose0, ecfg: EngineConfig,
-                        mesh=None, iters_per_frame: int | None = None, device="cuda"):
-    """Track on one device (mesh=None): the same result as make_tracker.
-    Sharding the videos over several devices is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError("track_video_sharded over a device mesh is not ported yet "
-                                  "(ROADMAP A7, multi-GPU)")
-    return make_tracker(model, ecfg, iters_per_frame, device=device)(frames, meshes, k, pose0)
+                        mesh: Mesh | None = None, iters_per_frame: int | None = None, device="cuda"):
+    """Track B videos at once (JAX's track_video_sharded).  With mesh=None
+    on one device: make_tracker's track.  With a parallel.Mesh the videos
+    (axis B of the (T, B, ...) frames) are split over its ranks, each
+    tracking its rows of frames, meshes and pose0 on its own device with
+    its copy of `model` (the same on every rank); k is whole.  Returns
+    (pose_final (B, 3, 4), poses (T, B, 3, 4)) of every video on every
+    rank, gathered on the device."""
+    if mesh is None:
+        return make_tracker(model, ecfg, iters_per_frame, device=device)(frames, meshes, k, pose0)
+    frames = torch.as_tensor(frames)
+    b = frames.shape[1]
+    if b % mesh.size:
+        raise ValueError(f"track_video_sharded: {b} videos do not split over {mesh.size} ranks")
+    n = b // mesh.size
+    pose_final, poses = make_tracker(model, ecfg, iters_per_frame, device=mesh.device)(
+        frames[:, mesh.rank * n:(mesh.rank + 1) * n], shard_pytree_batch(meshes, mesh), k,
+        shard_pytree_batch(torch.as_tensor(pose0), mesh))
+    return gather_batch(pose_final, mesh), gather_batch(poses, mesh, dim=1)

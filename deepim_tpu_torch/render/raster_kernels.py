@@ -41,7 +41,8 @@ surviving faces in list order and keeps the winner in registers.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain twin only for CPU tensors; there is no fallback from one to the
-other.  Each wrapper counts its launches in `<wrapper>.launches`.  The
+other.  Each wrapper counts its launches in `<wrapper>.launches`, and by
+card index in `<wrapper>.launches_by_device`.  The
 twins evaluate the same planes in the same order (((a*dx) + (b*dy)) + c,
 each op rounded on its own) and vectorise over (work items x face chunk x
 pixels): a first-max torch.argmax inside a chunk, then a strict `>` merge
@@ -145,9 +146,14 @@ def load_library():
 
 
 def reset_launch_counts() -> None:
-    csr_raster.launches = 0
-    csr_planes_raster.launches = 0
-    tile_raster.launches = 0
+    for wrapper in (csr_raster, csr_planes_raster, tile_raster):
+        wrapper.launches = 0
+        wrapper.launches_by_device = {}
+
+
+def _count_launch(wrapper, dev: torch.device) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_device[dev.index] = wrapper.launches_by_device.get(dev.index, 0) + 1
 
 
 def _check_cuda_args(name, tensors, dtypes):
@@ -430,7 +436,7 @@ def _csr_call(wrapper, plain, table, sorted_unit, seg_start, seg_count, tile_xy,
             w_items, int(pack), int(tile_w), stream,
         )
     _launch_check(name, rc)
-    wrapper.launches += 1
+    _count_launch(wrapper, dev)
     return out
 
 
@@ -490,10 +496,8 @@ def tile_raster(records, tf_global, counts, tile_xy, tile_h: int, tile_w: int):
             w_items, int(k_cap), p, int(tile_w), stream,
         )
     _launch_check("tile_raster", rc)
-    tile_raster.launches += 1
+    _count_launch(tile_raster, dev)
     return out
 
 
-csr_raster.launches = 0
-csr_planes_raster.launches = 0
-tile_raster.launches = 0
+reset_launch_counts()

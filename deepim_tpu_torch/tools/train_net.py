@@ -1,16 +1,20 @@
 """The training driver (counterpart of deepim_tpu/tools/train_net.py): load
 the pair lists of every dataset x image set x class, build the
 class-indexed mesh bank and the network, and run the epoch loop through
-the train step with per-epoch checkpoints and throughput logging.  One
-process on one device.
+the train step with per-epoch checkpoints and throughput logging.  On one
+device, or data-parallel over the ranks of a torch.distributed launch, one
+card each:
 
     python -m deepim_tpu_torch.tools.train_net --cfg <experiment.yaml> [--device cuda|cpu]
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m deepim_tpu_torch.tools.train_net --cfg <experiment.yaml>
 
-Without CUDA it raises unless given --device cpu.
+Without CUDA it raises unless given --device cpu (gloo between ranks).
 """
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import time
 
@@ -27,8 +31,15 @@ from deepim_tpu_torch.engine.refine import EngineConfig
 from deepim_tpu_torch.engine.tester import bank_on_device
 from deepim_tpu_torch.engine.train import TrainState, make_optimizer, make_train_step
 from deepim_tpu_torch.models.flownet import FlowNetDeepIM
+from deepim_tpu_torch.parallel import (
+    find_unused_parameters,
+    initialize_distributed,
+    make_mesh,
+    shutdown_distributed,
+    train_step_dp,
+)
 from deepim_tpu_torch.render.mesh import MeshBank, load_textured_mesh
-from deepim_tpu_torch.utils.logger import create_logger, logger
+from deepim_tpu_torch.utils.logger import create_logger, logger, run_directory
 from deepim_tpu_torch.utils.speedometer import Speedometer
 from deepim_tpu_torch.utils.tb import TBLogger
 from deepim_tpu_torch.utils.visualize import visualize_masks, visualize_pair_grid
@@ -115,18 +126,35 @@ def train_net(cfg: Config, output_dir: str | None = None, device="cuda",
     The network is build_model's bf16 one (a caller's `init_state_dict`
     holds float32 weights either way).  Precision on the card is set
     explicitly first (set_explicit_precision: no TF32, bf16 matmuls
-    reduced in float32)."""
+    reduced in float32).
+
+    In a process group (parallel.initialize_distributed) it trains
+    data-parallel, as the JAX train_net over its device mesh: the global
+    batch is BATCH_PAIRS x ranks, each rank assembling its rows
+    (TrainLoader) and stepping through train_step_dp (DDP, with
+    find_unused_parameters(cfg)); the LR schedule counts global batches.
+    Rank 0 alone creates the run directory and its log file, logs the
+    Speedometer and TensorBoard, dumps TRAIN.VISUALIZE grids and saves
+    checkpoints, every rank waiting after each save; the other ranks log
+    at WARNING.  Every rank resumes from the checkpoint, and every rank's
+    `epochs` hold the global samples and the metrics of every rank."""
     dev = resolve_device(device)
     set_explicit_precision()
+    mesh = make_mesh(device=dev)
+    lead = mesh.rank == 0
+    if not lead:
+        logger.setLevel(logging.WARNING)
     if output_dir is None:
-        output_dir = create_logger(cfg.output_path, cfg.TRAIN.model_prefix, cfg.dataset.image_set)
+        output_dir = (create_logger if lead else run_directory)(cfg.output_path, cfg.TRAIN.model_prefix,
+                                                                 cfg.dataset.image_set)
     dbs, pairdb = load_pairdbs(cfg)
     logger.info("num pairs: %d", len(pairdb))
     points_by_class = {cls: dbs[0].points(cls) for cls in cfg.dataset.class_name}
     bank_arrays = build_mesh_bank(cfg)
 
-    batch_size = cfg.TRAIN.BATCH_PAIRS
-    loader = TrainLoader(pairdb, cfg, points_by_class, batch_size)
+    batch_size = cfg.TRAIN.BATCH_PAIRS * mesh.size
+    loader = TrainLoader(pairdb, cfg, points_by_class, batch_size, process_index=mesh.rank,
+                         process_count=mesh.size)
     epoch_size = loader.epoch_size
 
     model = build_model(cfg, device=dev).train()
@@ -148,10 +176,11 @@ def train_net(cfg: Config, output_dir: str | None = None, device="cuda",
         logger.info("resumed from epoch %d (step %d)", begin_epoch, state.step)
 
     ecfg = EngineConfig.from_config(cfg, train=True, bank_arrays=bank_arrays, device=dev)
-    step_fn = make_train_step(ecfg, cfg.train_iter, cfg.TRAIN.FLOW_WEIGHT_TYPE, device=dev)
+    step_fn = train_step_dp(make_train_step(ecfg, cfg.train_iter, cfg.TRAIN.FLOW_WEIGHT_TYPE, device=dev),
+                            mesh, state, find_unused_parameters(cfg))
     bank_d = bank_on_device(bank_arrays, dev)
     speedo = Speedometer(batch_size, frequent=20)
-    tb = TBLogger(os.path.join(output_dir, "tb"), enabled=cfg.TRAIN.TENSORBOARD_LOG)
+    tb = TBLogger(os.path.join(output_dir, "tb"), enabled=cfg.TRAIN.TENSORBOARD_LOG and lead)
 
     for epoch in range(begin_epoch, cfg.TRAIN.end_epoch):
         per_step = []
@@ -168,7 +197,7 @@ def train_net(cfg: Config, output_dir: str | None = None, device="cuda",
             stacked = torch.stack([metrics[k].float() for k in names])  # (metrics, TRAIN_ITER_SIZE)
             per_step.append(stacked)
             host_metrics = None
-            if nbatch % speedo.frequent == 0 or nbatch == epoch_size - 1 or tb.enabled:
+            if lead and (nbatch % speedo.frequent == 0 or nbatch == epoch_size - 1 or tb.enabled):
                 values = stacked.cpu()
                 host_metrics = {}
                 for k, vals in zip(names, values):
@@ -182,11 +211,12 @@ def train_net(cfg: Config, output_dir: str | None = None, device="cuda",
                     int(sum(v for k, v in host_metrics.items() if k.startswith("raster_dropped/"))),
                     epoch, nbatch,
                 )
-            speedo(epoch, nbatch, host_metrics)
+            if lead:
+                speedo(epoch, nbatch, host_metrics)
             if tb.enabled:
                 host_metrics["lr"] = schedule(state.step)
                 tb.scalars(host_metrics, state.step)
-            if cfg.TRAIN.VISUALIZE and nbatch % 100 == 0:
+            if lead and cfg.TRAIN.VISUALIZE and nbatch % 100 == 0:
                 _dump_batch_vis(batch, os.path.join(output_dir, "vis"), f"e{epoch}_b{nbatch}")
             tic = time.perf_counter()
         if dev.type == "cuda":
@@ -198,9 +228,11 @@ def train_net(cfg: Config, output_dir: str | None = None, device="cuda",
         ckpt_s = 0.0
         if (epoch + 1) % cfg.TRAIN.CHECKPOINT_INTERVAL == 0 or epoch + 1 == cfg.TRAIN.end_epoch:
             t0 = time.perf_counter()
-            save_checkpoint(prefix, epoch + 1, state)
+            if lead:
+                save_checkpoint(prefix, epoch + 1, state)
+                logger.info("saved checkpoint epoch %d", epoch + 1)
+            mesh.barrier()
             ckpt_s = time.perf_counter() - t0
-            logger.info("saved checkpoint epoch %d", epoch + 1)
         values = torch.stack(per_step).cpu().numpy()  # (steps, metrics, TRAIN_ITER_SIZE)
         stats = {
             "epoch": epoch + 1, "samples": epoch_size * batch_size, "loop_s": loop_s, "wait_s": wait_s,
@@ -238,12 +270,20 @@ def _dump_batch_vis(batch, vis_dir: str, tag: str) -> None:
 
 def main(argv: list[str] | None = None) -> TrainState:
     """The CLI: train_net on --cfg, which sets the card's precision
-    (set_explicit_precision) before it builds the bf16 network."""
+    (set_explicit_precision) before it builds the bf16 network.  Under
+    torch.distributed.run it joins the process group first
+    (initialize_distributed: NCCL on the cards, gloo with --device cpu)
+    and leaves it at the end."""
     ap = argparse.ArgumentParser(description="Train DeepIM (PyTorch port)")
     ap.add_argument("--cfg", required=True, help="experiment YAML file")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    return train_net(load_config(args.cfg), device=args.device)
+    owns_group = initialize_distributed(device=args.device)
+    try:
+        return train_net(load_config(args.cfg), device=args.device)
+    finally:
+        if owns_group:
+            shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -48,10 +48,16 @@ def set_logger_dir(dirname: str) -> str:
     return path
 
 
+def run_directory(output_path: str, cfg_name: str, image_set: str) -> str:
+    """<output_path>/<cfg_name>/<image_set>/, the run directory (not
+    created)."""
+    return os.path.join(output_path, cfg_name, image_set)
+
+
 def create_logger(output_path: str, cfg_name: str, image_set: str) -> str:
     """Create <output_path>/<cfg_name>/<image_set>/, log into it, and
     return it (the run directory)."""
-    run_dir = os.path.join(output_path, cfg_name, image_set)
+    run_dir = run_directory(output_path, cfg_name, image_set)
     os.makedirs(run_dir, exist_ok=True)
     set_logger_dir(run_dir)
     return run_dir

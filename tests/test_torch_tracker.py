@@ -46,6 +46,7 @@ from deepim_tpu_torch.engine import EngineConfig, MeshBuffers, make_tracker, tra
 from deepim_tpu_torch.engine.checkpoint import save_checkpoint  # noqa: E402
 from deepim_tpu_torch.engine.train import TrainState  # noqa: E402
 from deepim_tpu_torch.models import FlowNetDeepIM, state_dict_from_flax  # noqa: E402
+from deepim_tpu_torch.parallel import Mesh, make_mesh  # noqa: E402
 from deepim_tpu_torch.render.mesh import MeshBank, make_icosphere, make_test_cube  # noqa: E402
 from deepim_tpu_torch.render.rasterizer import RasterConfig  # noqa: E402
 import deepim_tpu_torch.tools.track_video as t_track_video  # noqa: E402
@@ -299,16 +300,21 @@ def test_tracking_beats_static_init():
 
 
 def test_track_video_sharded():
-    """With mesh=None it is make_tracker's track; a device mesh raises,
-    naming the multi-GPU item."""
+    """With mesh=None it is make_tracker's track, and so it is, bit for
+    bit, over a parallel.Mesh of one rank (a process with no process
+    group); videos that do not split over the mesh's ranks raise.  The
+    sharded track over 2 ranks is tests/test_torch_parallel.py's."""
     _, tecfg, bank, frames, poses_gt = scene("dense")
     args = (frames[:3], MeshBuffers.gather(bank, [0, 1], device="cpu"), torch.from_numpy(K_MAT),
             torch.from_numpy(poses_gt[0]))
     final, poses = track_video_sharded(TorchCentroidOracle(), *args, tecfg, iters_per_frame=2, device="cpu")
     final2, poses2 = make_tracker(TorchCentroidOracle(), tecfg, 2, device="cpu")(*args)
     assert torch.equal(poses, poses2) and torch.equal(final, final2)
-    with pytest.raises(NotImplementedError, match="A7"):
-        track_video_sharded(TorchCentroidOracle(), *args, tecfg, mesh=object(), device="cpu")
+    final3, poses3 = track_video_sharded(TorchCentroidOracle(), *args, tecfg, mesh=make_mesh(device="cpu"),
+                                         iters_per_frame=2)
+    assert torch.equal(poses3, poses) and torch.equal(final3, final)
+    with pytest.raises(ValueError, match="do not split over 3 ranks"):
+        track_video_sharded(TorchCentroidOracle(), *args, tecfg, mesh=Mesh(0, 3, torch.device("cpu")))
 
 
 # --- a real network, and the driver --------------------------------------
