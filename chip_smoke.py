@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py               # every phase: one CUDA device, nvcc on PATH or in $CUDA_HOME
     python3 chip_smoke.py --phases 12   # phase 1 (device, build) and phase 12 alone, e.g. on four cards
+    python3 chip_smoke.py --phases 13   # phase 1 and phase 13 alone
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device and build: the card's name and power limit, torch's CUDA
@@ -155,6 +156,39 @@ Phases (each raises on failure; the script then exits non-zero):
      epoch with the time blocked on the loader, the host syncs, the
      sharded track's frames/s against one process tracking the W videos as
      one batch, and on NCCL the scaling against one card (phase 9's cell).
+ 13. unseen objects, texture sampling and the standalone renderer, under
+     deepim_tpu_torch/_build/phase13/: (E) a 2-iteration 64x64 refine with
+     lit re-renders and one with texture sampling, card against CPU (fp32
+     poses to 1e-4, bf16 within 3x the CPU's own bf16-vs-fp32 gap); (A)
+     four "novel" meshes written as OBJs (a 12-face cube, 1,280- and
+     20,480-face icospheres, make_mixed_detail_mesh's 20,880 faces) and 64
+     seeded poses at LINEMOD depths (write_modelnet_lists), test_deepim on
+     the recipe file as a ModelNet_lit evaluation from a seeded checkpoint
+     (batch 16, 4 iterations, bf16; a warm-up call, then one timed):
+     frames/s and stages, finite per-iteration mean errors, csr_raster and
+     nothing else launched exactly (1 observed + 4 refine renders a batch),
+     no dropped pair, csr_raster against its twin at a lit render, and the
+     host syncs of one lit iteration against the same iteration unlit; (B)
+     a devkit of one textured class ("globe": a 16,384-face uv sphere, a
+     seeded band-limited 1024x1024 texture, written as textured.obj with
+     'vt' lines and texture_map.png; 32 training and 64 test pairs rendered
+     by the port), test_deepim with TEXTURE_SAMPLING in turns off, on, on,
+     off after a warm-up: frames/s of each, texture_gather's device ms a
+     call (torch.profiler) and the per-sample texture copy of
+     MeshBuffers.gather, csr_raster against its twin at the uv render and
+     its launches exact, the host syncs of one textured iteration against
+     the same iteration baked; (C) train_net on that devkit, one epoch of
+     8 steps of batch 4 x 4 from seeded weights, with TEXTURE_SAMPLING in
+     turns off, on, on, off: samples/s of each, csr_raster launched
+     exactly (the recipe's slots8), every loss finite, no dropped pair,
+     every parameter moved; csr_raster and csr_planes_raster each against
+     its twin at the textured uv render; (D)
+     standalone.render of the globe at 480x640, flat and phong, with and
+     without the texture, on the card and on the CPU (rgb within 1 level,
+     depth 1e-5, hit masks equal), each mode against rgb+depth's parts,
+     once at 720x540 (BOP's size, tiles of 16 that do not divide it) and a
+     320-face icosphere (tile_raster); launches exact; csr_raster and
+     tile_raster each against its twin at a standalone render.
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -180,6 +214,7 @@ import torch  # noqa: E402
 
 from deepim_tpu_torch.config import Config, TrainConfig, TrainIterConfig, load_config  # noqa: E402
 from deepim_tpu_torch.config import update_config_dict, validate_config  # noqa: E402
+from deepim_tpu_torch.data.modelnet import ModelNetDB, write_modelnet_lists  # noqa: E402
 from deepim_tpu_torch.data.pairdb import load_gt_pairdb  # noqa: E402
 from deepim_tpu_torch.device import set_explicit_precision  # noqa: E402
 from deepim_tpu_torch.engine import (  # noqa: E402
@@ -190,15 +225,18 @@ from deepim_tpu_torch.engine import (  # noqa: E402
     warmup_multifactor_schedule,
 )
 from deepim_tpu_torch.engine.checkpoint import checkpoint_path, save_checkpoint  # noqa: E402
-from deepim_tpu_torch.engine.refine import EngineConfig, MeshBuffers, Observation, refine  # noqa: E402
-from deepim_tpu_torch.engine.refine import tune_raster_for_bank  # noqa: E402
-from deepim_tpu_torch.engine.tester import pred_eval  # noqa: E402
+from deepim_tpu_torch.engine.refine import EngineConfig, LightParams, MeshBuffers, Observation, refine  # noqa: E402
+from deepim_tpu_torch.engine.refine import refine_step, render_at_pose, tune_raster_for_bank  # noqa: E402
+from deepim_tpu_torch.engine.tester import bank_on_device, pred_eval  # noqa: E402
 from deepim_tpu_torch.engine.scene import LINEMOD_K, build_scene, train_batch  # noqa: E402
 from deepim_tpu_torch.models.flownet import _ENCODER, FlowNetDeepIM, conv_out  # noqa: E402
 from deepim_tpu_torch.ops.masks import box_fill  # noqa: E402
 from deepim_tpu_torch.render import raster_kernels as rk  # noqa: E402
-from deepim_tpu_torch.render.mesh import MeshBank, make_icosphere, make_test_cube  # noqa: E402
+from deepim_tpu_torch.render.lighting import lit_vertex_colors  # noqa: E402
+from deepim_tpu_torch.render.mesh import MeshBank, make_icosphere, make_mixed_detail_mesh, make_test_cube  # noqa: E402
+from deepim_tpu_torch.render.mesh import make_uv_sphere, smooth_texture, write_obj, write_textured_obj  # noqa: E402
 from deepim_tpu_torch.render.rasterizer import KERNELS, RasterConfig, kernel_inputs, rasterize  # noqa: E402
+from deepim_tpu_torch.render.rasterizer import texture_gather  # noqa: E402
 from deepim_tpu_torch.render.stress import stress_tile_list, stress_work_list  # noqa: E402
 from deepim_tpu_torch.tools.synth_data import generate_dataset  # noqa: E402
 from deepim_tpu_torch.tools import test_net as test_net_mod  # noqa: E402
@@ -2085,7 +2123,445 @@ def drive_dp(dev, card: str) -> dict:
     return kernel
 
 
-ALL_PHASES = set(range(1, 13))
+# Phase 13: unseen objects (ModelNet), per-fragment texture sampling in both
+# drivers and the standalone renderer.
+PHASE13_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase13")
+MODELNET_POSES = 64   # test pairs of the ModelNet lists: 4 batches of 16
+TEX_PAIRS = 64        # test pairs of the textured devkit: 4 batches of 16
+TEX_TRAIN_PAIRS = 32  # its training pairs: one epoch of 8 steps at batch 4
+TEX_SIZE = 1024       # texture side, pixels
+TEX_GRID = (64, 128)  # the uv sphere's latitude x longitude bands: 16,384 faces
+TEX_TURNS = (False, True, True, False)  # TEXTURE_SAMPLING of phase 13B's timed runs, in turns
+BOP_K = np.array([[572.4114, 0.0, 360.0], [0.0, 573.57043, 270.0], [0.0, 0.0, 1.0]], np.float32)
+
+
+def modelnet_config(model_file: str, pose_file: str, out_root: str):
+    """The recipe file through the port's reader as a ModelNet_lit
+    evaluation of the given lists."""
+    return validate_config(update_config_dict(load_config(EVAL_CFG), {
+        "output_path": out_root,
+        "dataset": {"dataset": "ModelNet_lit", "model_file": model_file, "pose_file": pose_file},
+    }))
+
+
+def iteration_syncs(model, meshes, pose, dev, **variants) -> dict:
+    """host_syncs of one refine_step for each variant, name -> (obs,
+    ecfg), after a warm-up step of each and one counted step that is
+    thrown away (the first set_sync_debug_mode of a process counts a
+    synchronisation inside torch.cuda itself)."""
+    def step(obs, ecfg):
+        return lambda: refine_step(model, obs, meshes, pose, ecfg, iter_index=0, device=dev)
+
+    for obs, ecfg in variants.values():
+        step(obs, ecfg)()
+    torch.cuda.synchronize()
+    host_syncs(step(*next(iter(variants.values()))))
+    return {name: host_syncs(step(*v)) for name, v in variants.items()}
+
+
+def drive_modelnet(dev, card: str) -> dict:
+    """Phase 13A (see the module docstring).  Returns csr_raster's check at
+    a lit render with the timed run's launches."""
+    from scipy.spatial.transform import Rotation
+
+    label = "modelnet"
+    root = os.path.join(PHASE13_DIR, "modelnet")
+    os.makedirs(os.path.join(root, "models"))
+    meshes = {"cube": make_test_cube(0.08), "ico3": make_icosphere(0.05, 3), "mixed": make_mixed_detail_mesh(0),
+              "ico5": make_icosphere(0.05, 5)}
+    paths = []
+    for name, mesh in meshes.items():
+        paths.append(os.path.join(root, "models", f"{name}.obj"))
+        write_obj(paths[-1], mesh)
+    rng = np.random.RandomState(13)
+    rot = Rotation.random(MODELNET_POSES, random_state=rng).as_matrix().astype(np.float32)
+    t = np.stack([rng.uniform(-0.05, 0.05, MODELNET_POSES), rng.uniform(-0.05, 0.05, MODELNET_POSES),
+                  rng.uniform(0.5, 0.9, MODELNET_POSES)], 1).astype(np.float32)
+    model_file, pose_file = write_modelnet_lists(
+        root, paths, [(i % len(paths), np.concatenate([rot[i], t[i][:, None]], 1)) for i in range(MODELNET_POSES)])
+    cfg = modelnet_config(model_file, pose_file, os.path.join(root, "output"))
+    n_iter = cfg.TEST.test_iter
+    k = torch.from_numpy(cfg.dataset.intrinsic_matrix()).to(dev)
+
+    # One lit render as test_modelnet plans it (its first batch at the gt
+    # poses): csr_raster against its twin there.
+    db = ModelNetDB(model_file, pose_file)
+    bank = db.mesh_bank()
+    arrays = (bank.vertices, bank.colors, bank.faces, bank.face_valid, bank.normals)
+    ecfg = EngineConfig.from_config(cfg, bank_arrays=arrays, device=dev)
+    recs = db.sample_records()[:EVAL_B]
+    m = MeshBuffers.gather(arrays, [r["model_index"] for r in recs], device=dev)
+
+    def stacked(key):
+        return torch.from_numpy(np.stack([r[key] for r in recs])).to(dev)
+
+    light = LightParams(stacked("light_position"), stacked("light_intensity"), stacked("brightness_ratio"))
+    pose_gt = stacked("pose_observed")
+    lit = lit_vertex_colors(m.vertices, m.normals, m.colors, pose_gt, *light)
+    plan = kernel_inputs(m.vertices, lit, m.faces, m.face_valid, pose_gt, k, ecfg.raster, device=dev)
+    if {name for name, _ in plan} != {"csr_raster"}:
+        raise AssertionError(f"{label}: a lit render plans {[name for name, _ in plan]}")
+    kernel = check_kernel("csr_raster", plan[0][1], card, shape="modelnet lit")
+    del kernel["out"]
+
+    model = make_model(True, 3, dev, hw=(H, W))
+    runs = {}
+    for name in ("warm-up", "timed"):
+        out = os.path.join(root, "output", name)
+        save_checkpoint(os.path.join(out, cfg.TRAIN.model_prefix), cfg.TEST.test_epoch, TrainState(model, None))
+        torch.cuda.synchronize()
+        rk.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = test_deepim(cfg, output_dir=out, batch_size=EVAL_B, device=dev)
+        torch.cuda.synchronize()
+        runs[name] = (res, time.perf_counter() - t0, launch_counts())
+    res, wall, counts = runs["timed"]
+    n_batches = math.ceil(MODELNET_POSES / EVAL_B)
+    expect = len(plan) * (1 + n_iter) * n_batches
+    if counts != {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": 0}:
+        raise AssertionError(f"{label}: launches {counts}, want csr_raster {expect} ({len(plan)} a render x "
+                             f"(1 observed + {n_iter} iterations) x {n_batches} batches) and nothing else")
+    run = res["run"]
+    if run["pairs"] != MODELNET_POSES or run["raster_dropped"]:
+        raise AssertionError(f"{label}: {run}")
+    means = [(float(np.mean(it["rot_err"])), float(np.mean(it["trans_err"]))) for it in [res["init"]] + res["iters"]]
+    if len(res["iters"]) != n_iter or not np.isfinite(means).all():
+        raise AssertionError(f"{label}: per-iteration mean errors {means}")
+
+    # Host syncs of one lit iteration against the same iteration unlit.
+    eval_model = test_net_mod._eval_model(cfg, init_from=model).to(dev)
+    img, _, mask = render_at_pose(m, pose_gt, k, ecfg, light, device=dev)
+    obs = Observation(img, box_fill(mask), None, None, k, light=light)
+    pose0 = stacked("pose_rendered")
+    syncs = iteration_syncs(eval_model, m, pose0, dev, unlit=(obs._replace(light=None), ecfg), lit=(obs, ecfg))
+    lit_syncs, plain_syncs = syncs["lit"], syncs["unlit"]
+    breakdown(f"{label} lit refine call, batch {EVAL_B}", lambda: refine(eval_model, obs, m, pose0, ecfg, device=dev),
+              card)
+    if sum(lit_syncs.values()) > sum(plain_syncs.values()):
+        raise AssertionError(f"{label}: a lit iteration syncs {lit_syncs}, an unlit one {plain_syncs}")
+    log(f"[{label}] test_deepim on ModelNet_lit: {MODELNET_POSES} pairs of 4 novel meshes "
+        f"({', '.join(f'{n} {mm.num_faces} faces' for n, mm in meshes.items())}; bank padded to "
+        f"{bank.faces.shape[1]} faces) at {H}x{W}, batch {EVAL_B}, {n_iter} iterations, bf16: "
+        f"{run['pairs'] / run['net_s']:.2f} frames/s over test_modelnet's renders and refinement (net "
+        f"{run['net_s']:.3f} s; data {run['data_s']:.3f} s, eval {run['eval_s']:.3f} s, model {run['model_s']:.3f} s); "
+        f"the call {wall:.3f} s, the warm-up call {runs['warm-up'][1]:.3f} s; launches {counts} (planned "
+        f"{len(plan)} a render); dropped pairs 0 [{card}]")
+    log(f"[{label}] mean rot / trans error, init then each iteration: "
+        + "; ".join(f"{r:.3f} deg / {tt * 1e3:.2f} mm" for r, tt in means)
+        + f"; host syncs of one lit iteration {sum(lit_syncs.values())} ({lit_syncs}), of the same iteration "
+        f"unlit {sum(plain_syncs.values())} [{card}]")
+    kernel["launches"] = counts["csr_raster"]
+    return kernel
+
+
+def textured_config(devkit: str, out_root: str, texture: bool, **train):
+    """The recipe file through the port's reader, pointed at the textured
+    devkit's one class, dataset.TEXTURE_SAMPLING as given; trained (13C)
+    for one epoch of the real set from seeded weights with clipping."""
+    return validate_config(update_config_dict(load_config(EVAL_CFG), {
+        "output_path": out_root,
+        "dataset": {"dataset": "LM6D_REFINE", "image_set": "train_", "dataset_path": devkit, "root_path": devkit,
+                    "model_dir": os.path.join(devkit, "models"), "class_name": ["globe"],
+                    "test_image_set": "val_", "TEXTURE_SAMPLING": texture},
+        "network": {"pretrained": ""},
+        "TRAIN": {"end_epoch": 1, "grad_clip": RECIPE_TCFG.grad_clip, **train},
+        "TEST": {"test_epoch": 1},
+    }))
+
+
+def write_textured_devkit(devkit: str, dev, card: str):
+    """Phase 13B's devkit: one class, "globe", a uv sphere of radius 0.05 m
+    at LINEMOD density (TEX_GRID bands, 16,384 faces) with a seeded
+    band-limited TEX_SIZE^2 texture, written as textured.obj ('vt' lines)
+    and texture_map.png; its pairs rendered by the port (480x640, LINEMOD
+    intrinsics; colours baked per vertex, as synth_data renders).  Returns
+    the mesh."""
+    mesh = make_uv_sphere(0.05, *TEX_GRID, smooth_texture(TEX_SIZE, seed=13))
+    raster = tune_raster_for_bank(EngineConfig(raster=RasterConfig(height=H, width=W)),
+                                  MeshBank.from_meshes([mesh]).arrays(), LINEMOD_K).raster
+    t0 = time.perf_counter()
+    generate_dataset(devkit, {"globe": mesh}, LINEMOD_K, n_train=TEX_TRAIN_PAIRS, n_val=TEX_PAIRS, height=H,
+                     width=W, raster_cfg=raster, device=dev)
+    write_textured_obj(os.path.join(devkit, "models", "globe"), mesh)
+    log(f"[textured eval] devkit: 1 class (a {mesh.num_faces}-face uv sphere, a {TEX_SIZE}x{TEX_SIZE} texture) x "
+        f"({TEX_TRAIN_PAIRS} training + {TEX_PAIRS} test) pairs at {H}x{W}, written in "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+    return mesh
+
+
+def drive_textured_eval(dev, card: str, devkit: str) -> dict:
+    """Phase 13B (see the module docstring).  Returns csr_raster's check at
+    the uv render with the textured runs' launches."""
+    label = "textured eval"
+    out_root = os.path.join(PHASE13_DIR, "textured_eval")
+    cfgs = {tex: textured_config(devkit, out_root, tex) for tex in (False, True)}
+    cfg = cfgs[True]
+    n_iter = cfg.TEST.test_iter
+    k = torch.from_numpy(cfg.dataset.intrinsic_matrix()).to(dev)
+    t0 = time.perf_counter()
+    bank = build_mesh_bank(cfg)
+    bank_s = time.perf_counter() - t0
+    if not isinstance(bank, dict) or bank["textures"].shape != (1, TEX_SIZE, TEX_SIZE, 3):
+        raise AssertionError(f"{label}: build_mesh_bank gave {type(bank)}")
+    ecfg = EngineConfig.from_config(cfg, bank_arrays=bank, device=dev)
+    _, recs = load_gt_pairdb(cfg, "LM6D_REFINE", "val_globe", "globe", devkit, devkit)
+    pose0 = torch.from_numpy(np.stack([r["pose_rendered"] for r in recs[:EVAL_B]])).to(dev)
+    bank_d = bank_on_device(bank, dev)
+    idx = torch.zeros(EVAL_B, dtype=torch.long, device=dev)
+    gather_ms = cuda_ms(lambda: MeshBuffers.gather(bank_d, idx, device=dev), reps=5)
+    m = MeshBuffers.gather(bank_d, idx, device=dev)
+    uvz = torch.cat([m.uv, torch.zeros_like(m.uv[..., :1])], -1)
+    plan = kernel_inputs(m.vertices, uvz, m.faces, m.face_valid, pose0, k, ecfg.raster, device=dev)
+    if {name for name, _ in plan} != {"csr_raster"}:
+        raise AssertionError(f"{label}: a uv render plans {[name for name, _ in plan]}")
+    kernel = check_kernel("csr_raster", plan[0][1], card, shape="textured eval uv")
+    del kernel["out"]
+    uv_img, depth = rasterize(m.vertices, uvz, m.faces, m.face_valid, pose0, k, ecfg.raster, device=dev)
+    gather_args = (m.textures, uv_img[..., 0], uv_img[..., 1])
+    tg_ms = breakdown("texture_gather", lambda: texture_gather(*gather_args), card)["busy"]
+    tg_call_ms = cuda_ms(lambda: texture_gather(*gather_args), reps=10)
+
+    model = make_model(True, 3, dev, hw=(H, W))
+    n_batches = math.ceil(TEX_PAIRS / EVAL_B)
+    expect = len(plan) * n_iter * n_batches
+    fps = {False: [], True: []}
+    for i, tex in enumerate((True,) + TEX_TURNS):
+        out = os.path.join(out_root, f"run{i}")
+        save_checkpoint(os.path.join(out, cfg.TRAIN.model_prefix), cfg.TEST.test_epoch, TrainState(model, None))
+        torch.cuda.synchronize()
+        rk.reset_launch_counts()
+        res = test_deepim(cfgs[tex], output_dir=out, batch_size=EVAL_B, device=dev)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        run = res["run"]
+        if counts != {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": 0}:
+            raise AssertionError(f"{label} (TEXTURE_SAMPLING {tex}): launches {counts}, want csr_raster {expect} "
+                                 f"({len(plan)} a render x {n_iter} iterations x {n_batches} batches) and nothing "
+                                 "else")
+        if run["pairs"] != TEX_PAIRS or run["raster_dropped"]:
+            raise AssertionError(f"{label} (TEXTURE_SAMPLING {tex}): {run}")
+        check_tables(label, res, ["globe"], n_iter)
+        if i:
+            fps[tex].append(run["pairs"] / (run["data_s"] + run["net_s"]))
+
+    eval_model = test_net_mod._eval_model(cfg, init_from=model).to(dev)
+    img = torch.from_numpy(np.stack([read_png(r["image_observed"]) for r in recs[:EVAL_B]])).to(dev)
+    img = img.permute(0, 3, 1, 2).float()
+    mask = render_at_pose(m, pose0, k, ecfg, device=dev)[2]
+    obs = Observation(img, box_fill(mask), None, None, k)
+    syncs = iteration_syncs(eval_model, m, pose0, dev, baked=(obs, dataclasses.replace(ecfg, texture_sampling=False)),
+                            textured=(obs, ecfg))
+    tex_syncs, baked_syncs = syncs["textured"], syncs["baked"]
+    for name, e in (("textured", ecfg), ("baked", dataclasses.replace(ecfg, texture_sampling=False))):
+        breakdown(f"{label} {name} refine call, batch {EVAL_B}", lambda: refine(eval_model, obs, m, pose0, e, device=dev),
+                  card)
+    if sum(tex_syncs.values()) > sum(baked_syncs.values()):
+        raise AssertionError(f"{label}: a textured iteration syncs {tex_syncs}, a baked one {baked_syncs}")
+    log(f"[{label}] test_deepim, {TEX_PAIRS} pairs of the textured globe at {H}x{W}, batch {EVAL_B}, {n_iter} "
+        f"iterations, bf16, in turns {TEX_TURNS}: frames/s over pred_eval's loop with TEXTURE_SAMPLING "
+        f"{[round(v, 2) for v in fps[True]]}, baked colours {[round(v, 2) for v in fps[False]]}; launches "
+        f"{expect} csr_raster a run and nothing else; dropped pairs 0 [{card}]")
+    log(f"[{label}] texture_gather at batch {EVAL_B}, {H}x{W}, {TEX_SIZE}^2 textures: {tg_ms:.4f} device ms a call "
+        f"(one call under torch.profiler), {tg_call_ms:.4f} ms a call between CUDA events; MeshBuffers.gather of the "
+        f"batch's textures ({EVAL_B * TEX_SIZE * TEX_SIZE * 12 / 1e6:.1f} MB copied) {gather_ms:.4f} ms; "
+        f"build_mesh_bank {bank_s:.3f} s; host syncs of one textured iteration {sum(tex_syncs.values())} "
+        f"({tex_syncs}), of the same iteration baked {sum(baked_syncs.values())} [{card}]")
+    kernel["launches"] = expect
+    return kernel
+
+
+def drive_textured_train(dev, card: str, devkit: str) -> tuple[dict, dict]:
+    """Phase 13C (see the module docstring).  Returns csr_raster's check at
+    the training render with train_net's launches, and csr_planes_raster's
+    at the same render with the planes64 kernel (0 launches on this path)."""
+    label = "textured train"
+    out = os.path.join(PHASE13_DIR, "textured_train")
+    cfg = textured_config(devkit, out, True)
+    b, n_inner = cfg.TRAIN.BATCH_PAIRS, cfg.network.TRAIN_ITER_SIZE
+    bank = build_mesh_bank(cfg)
+    ecfg = EngineConfig.from_config(cfg, train=True, bank_arrays=bank, device=dev)
+    _, recs = load_gt_pairdb(cfg, "LM6D_REFINE", "train_globe", "globe", devkit, devkit)
+    m = MeshBuffers.gather(bank, np.zeros(b, np.int64), device=dev)
+    uvz = torch.cat([m.uv, torch.zeros_like(m.uv[..., :1])], -1)
+    pose = torch.from_numpy(np.stack([r["pose_rendered"] for r in recs[:b]]))
+    k = torch.from_numpy(cfg.dataset.intrinsic_matrix())
+    checks = {}
+    for name, csr_kernel in (("csr_raster", "slots8"), ("csr_planes_raster", "planes64")):
+        plan = kernel_inputs(m.vertices, uvz, m.faces, m.face_valid, pose, k,
+                             dataclasses.replace(ecfg.raster, csr_kernel=csr_kernel), device=dev)
+        if {n for n, _ in plan} != {name}:
+            raise AssertionError(f"{label}: a uv render with {csr_kernel} plans {[n for n, _ in plan]}")
+        checks[name] = check_kernel(name, plan[0][1], card, shape="textured train uv")
+        del checks[name]["out"]
+        checks[name]["launches"] = 0
+    n_plan = len(plan)
+
+    init = build_model(cfg, device="cpu").state_dict()
+    steps = TEX_TRAIN_PAIRS // b
+    expect = n_plan * n_inner * steps
+    rates = {False: [], True: []}
+    for i, tex in enumerate(TEX_TURNS):
+        torch.cuda.synchronize()
+        rk.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = train_net(textured_config(devkit, out, tex), output_dir=os.path.join(out, f"run{i}"), device=dev,
+                          init_state_dict=init)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if counts != {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": 0}:
+            raise AssertionError(f"{label} (TEXTURE_SAMPLING {tex}): launches {counts}, want csr_raster {expect} "
+                                 f"({n_plan} a render x {n_inner} inner iterations x {steps} steps) and nothing else")
+        e, = state.epochs
+        if e["nonfinite_losses"] or e["raster_dropped"] or state.optimizer.count != steps * n_inner:
+            raise AssertionError(f"{label}: {e['nonfinite_losses']} non-finite loss values, {e['raster_dropped']} "
+                                 f"dropped pairs, {state.optimizer.count} updates (want {steps * n_inner})")
+        params = state.model.state_dict()
+        still = [key for key, v in init.items() if torch.equal(v, params[key].cpu())]
+        if still or not all(bool(torch.isfinite(v).all()) for v in params.values()):
+            raise AssertionError(f"{label}: parameters not moved {still} or not finite")
+        rates[tex].append(e["samples"] / e["loop_s"])
+        log(f"[{label}] train_net, TEXTURE_SAMPLING {tex}, 1 epoch of {steps} steps x {b} pairs x {n_inner} inner "
+            f"iterations at {H}x{W}, bf16: {rates[tex][-1]:.2f} samples/s with the data path ({e['samples']} "
+            f"samples in {e['loop_s']:.3f} s; blocked on the loader {e['wait_s']:.3f} s, in train steps "
+            f"{e['step_s']:.3f} s); the call {wall:.3f} s; launches {counts} [{card}]")
+    log(f"[{label}] samples/s in turns {TEX_TURNS}: with TEXTURE_SAMPLING {[round(v, 2) for v in rates[True]]}, baked "
+        f"colours {[round(v, 2) for v in rates[False]]}; csr_raster {expect} launches a run (the recipe's csr_kernel "
+        f"is slots8) and nothing else; every loss finite, 0 dropped pairs, every parameter moved [{card}]")
+    checks["csr_raster"]["launches"] = expect
+    return checks["csr_raster"], checks["csr_planes_raster"]
+
+
+def drive_standalone(dev, card: str, globe) -> dict:
+    """Phase 13D (see the module docstring).  Returns csr_raster's check at
+    the textured globe's uv render and tile_raster's at a 320-face
+    icosphere's, each with the launches of the card's renders."""
+    from scipy.spatial.transform import Rotation
+
+    from deepim_tpu_torch.render import standalone
+
+    label = "standalone"
+    r = Rotation.from_euler("xyz", [0.3, -0.5, 0.2]).as_matrix().astype(np.float32)
+    t = np.float32([0.01, -0.02, 0.6])
+    pose = np.concatenate([r, t[:, None]], 1)
+    tex = globe.texture / 255.0
+    small = make_icosphere(0.05, 2)
+
+    def both(mesh, size, k, **kw):
+        return [standalone.render(mesh, size, k, r, t, device=d, **kw) for d in (dev, "cpu")]
+
+    def compare(what, got, want):
+        (rgb_g, d_g), (rgb_c, d_c) = got, want
+        c_err = int(np.abs(rgb_g.astype(int) - rgb_c.astype(int)).max())
+        d_err = float(np.abs(d_g - d_c).max())
+        if not np.array_equal(d_g > 0, d_c > 0) or c_err > 1 or d_err > 1e-5 or not (d_g > 0).sum():
+            raise AssertionError(f"{label} {what}: card vs CPU rgb err {c_err}, depth err {d_err}, hit masks "
+                                 f"{'equal' if np.array_equal(d_g > 0, d_c > 0) else 'differ'}")
+        return f"{what}: rgb err {c_err}, depth err {d_err:.3g}, {int((d_g > 0).sum())} px"
+
+    notes = []
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    t0 = time.perf_counter()
+    for shading in ("flat", "phong"):
+        for textured in (False, True):
+            got, want = both(globe, (W, H), LINEMOD_K, shading=shading, texture=tex if textured else None)
+            notes.append(compare(f"{shading}{' textured' if textured else ''}", got, want))
+            for mode, part in (("rgb", got[0]), ("depth", got[1])):
+                alone = standalone.render(globe, (W, H), LINEMOD_K, r, t, mode=mode, shading=shading,
+                                          texture=tex if textured else None, device=dev)
+                if not np.array_equal(alone, part):
+                    raise AssertionError(f"{label}: mode {mode!r} differs from rgb+depth's ({shading})")
+    got, want = both(globe, (720, 540), BOP_K, texture=tex)
+    notes.append(compare("720x540 (BOP) textured", got, want))
+    got, want = both(small, (W, H), LINEMOD_K, shading="phong")
+    notes.append(compare("320-face icosphere phong", got, want))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    # rgb+depth, rgb and depth for each of the 4 globe cases (a textured
+    # phong render is 2 rasterizations), the BOP render; the icosphere's.
+    want_counts = {"csr_raster": 3 * 5 + 1, "csr_planes_raster": 0, "tile_raster": 1}
+    if counts != want_counts:
+        raise AssertionError(f"{label}: launches {counts}, want {want_counts}")
+
+    checks = {}
+    for name, mesh in (("csr_raster", globe), ("tile_raster", small)):
+        cfg = standalone.raster_config(mesh, (W, H), LINEMOD_K, pose, 0.1, 10.0)
+        attrs = torch.from_numpy(np.concatenate([mesh.uv, np.zeros_like(mesh.uv[:, :1])], 1)
+                                 if mesh.uv is not None else mesh.colors)
+        (got_name, args), = kernel_inputs(torch.from_numpy(mesh.vertices)[None], attrs[None],
+                                          torch.from_numpy(mesh.faces)[None],
+                                          torch.ones((1, mesh.num_faces), dtype=torch.bool),
+                                          torch.from_numpy(pose)[None], torch.from_numpy(LINEMOD_K), cfg, device=dev)
+        if got_name != name:
+            raise AssertionError(f"{label}: {mesh.num_faces} faces plan {got_name}")
+        checks[name] = check_kernel(name, args, card, shape="standalone")
+        del checks[name]["out"]
+        checks[name]["launches"] = counts[name]
+    log(f"[{label}] standalone.render at {H}x{W} (globe, {globe.num_faces} faces) in each shading, with and without "
+        f"the texture, each mode; at 720x540; a 320-face icosphere: card vs CPU "
+        + "; ".join(notes) + f"; {wall:.3f} s for the card's and the CPU's renders; launches {counts} [{card}]")
+    return checks
+
+
+def small_lit_textured_checks(dev, card: str) -> None:
+    """Phase 13E: a 2-iteration 64x64 refine with lit re-renders (ModelNet)
+    and one with texture sampling, card against CPU with the same weights:
+    fp32 poses to 1e-4, bf16 (network and image zoom) within BF16_GAP_FACTOR
+    times the CPU's own bf16-vs-fp32 pose gap."""
+    k = torch.from_numpy(K64)
+    cube, ico, globe = make_test_cube(0.09), make_icosphere(0.055, 1), make_uv_sphere(0.05, 12, 24,
+                                                                                    smooth_texture(64, seed=3))
+    lit_bank = MeshBank.from_meshes([cube, ico], pad_multiple=64).with_normals([cube, ico]).arrays()
+    tex_bank = MeshBank.from_meshes([globe], pad_multiple=64, keep_textures=True).arrays()
+    pose_gt = np.tile(np.eye(3, 4, dtype=np.float32), (2, 1, 1))
+    pose_gt[:, :3, :3] = np.array([[[0.8, -0.6, 0], [0.6, 0.8, 0], [0, 0, 1]], np.eye(3)], np.float32)
+    pose_gt[:, 2, 3] = 0.55
+    pose0 = pose_gt.copy()
+    pose0[:, :, 3] += np.float32([0.01, -0.008, 0.03])
+    raster = RasterConfig(height=64, width=64, tile_h=16, tile_w=16, max_faces_per_tile=128, znear=0.05, zfar=10.0)
+    for what, bank, cls, kw in (("lit", lit_bank, [0, 1], {}), ("textured", tex_bank, [0, 0],
+                                                             {"texture_sampling": True})):
+        ecfg = EngineConfig(height=64, width=64, raster=raster, num_iters=2, **kw)
+        meshes = MeshBuffers.gather(bank, cls, device="cpu")
+        light = (LightParams(torch.tensor([[0.1, -0.2, -0.4], [-0.3, 0.1, -0.5]]), torch.tensor([[1.1, 0.9, 1.0]] * 2),
+                             torch.tensor([0.4, 0.2])) if what == "lit" else None)
+        img, _, mask = render_at_pose(meshes, torch.from_numpy(pose_gt), k, ecfg, light, device="cpu")
+        obs = Observation(img, box_fill(mask), None, None, k, light=light)
+        poses = {}
+        for mode in ("fp32", "bf16"):
+            for side, d in (("cpu", "cpu"), ("cuda", dev)):
+                model = make_model(True, 5, d, hw=(64, 64), dtype=PRECISIONS[mode][0])
+                poses[mode, side] = refine(model, obs, meshes, torch.from_numpy(pose0), with_zoom(ecfg, mode),
+                                           device=d)[1].cpu().numpy()
+        err = float(np.abs(poses["fp32", "cuda"] - poses["fp32", "cpu"]).max())
+        ratio = gap_ratio(poses["bf16", "cuda"], poses["bf16", "cpu"], poses["fp32", "cpu"])
+        if not np.isfinite(poses["bf16", "cuda"]).all() or err > 1e-4 or ratio > BF16_GAP_FACTOR:
+            raise AssertionError(f"64x64 {what} refine: card vs CPU fp32 pose err {err}, bf16 {ratio} of the CPU's "
+                                 "bf16-vs-fp32 gap")
+        log(f"[reference] 64x64 {what} refine, 2 iterations: fp32 card vs CPU pose err {err:.3g}; bf16 card vs CPU "
+            f"pose diff {ratio:.3g} of the CPU's bf16-vs-fp32 gap (limit {BF16_GAP_FACTOR}) [{card}]")
+
+
+def drive_phase13(dev, card: str) -> dict:
+    """Phase 13: 13E, then 13A-13D.  Returns each kernel's checks at this
+    phase's renders, keyed by kernel and render."""
+    shutil.rmtree(PHASE13_DIR, ignore_errors=True)
+    small_lit_textured_checks(dev, card)
+    out = {"csr_raster": {"modelnet": drive_modelnet(dev, card)}}
+    devkit = os.path.join(PHASE13_DIR, "textured_devkit")
+    globe = write_textured_devkit(devkit, dev, card)
+    out["csr_raster"]["textured_eval"] = drive_textured_eval(dev, card, devkit)
+    out["csr_raster"]["textured_train"], planes = drive_textured_train(dev, card, devkit)
+    out["csr_planes_raster"] = {"textured_train": planes}
+    standalone_checks = drive_standalone(dev, card, globe)
+    out["csr_raster"]["standalone"] = standalone_checks["csr_raster"]
+    out["tile_raster"] = {"standalone": standalone_checks["tile_raster"]}
+    return out
+
+
+ALL_PHASES = set(range(1, 14))
 KERNEL_PHASES = set(range(2, 7))  # phase 2's scenes carry phases 3-6: they run together
 
 
@@ -2110,7 +2586,7 @@ def main(argv: list | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke run of deepim_tpu_torch")
-    ap.add_argument("--phases", default="1-12", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
+    ap.add_argument("--phases", default="1-13", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
                     "always runs, 2-6 run together, 11 needs 8)")
     ap.add_argument("--dp-rank", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 12
     args = ap.parse_args(argv)
@@ -2141,7 +2617,7 @@ def main(argv: list | None = None) -> int:
         if "registers" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
 
-    results = {}
+    results, heavy = {}, None
     if 2 in phases:
         # 2. Kernels against their plain twins at their paths' shapes.
         k = torch.from_numpy(LINEMOD_K)
@@ -2220,8 +2696,8 @@ def main(argv: list | None = None) -> int:
         breakdown("dense path", refine_call(dense_scene, dense_model, dev), card)
         render_comparison(csr_scene, dev, card)
 
-    if phases & {7, 8, 9, 11, 12}:
-        for d in (PHASE8_DIR, PHASE9_DIR, PHASE11_DIR):
+    if phases & {7, 8, 9, 11, 12, 13}:
+        for d in (PHASE8_DIR, PHASE9_DIR, PHASE11_DIR, PHASE13_DIR):
             shutil.rmtree(d, ignore_errors=True)
     if 7 in phases:
         # 7. Small-input reference checks.
@@ -2251,6 +2727,12 @@ def main(argv: list | None = None) -> int:
         t12 = time.perf_counter()
         dp = drive_dp(dev, card)
         log(f"[dp] phase 12 took {time.perf_counter() - t12:.1f} s [{card}]")
+    extras = {}
+    if 13 in phases:
+        # 13. Unseen objects, texture sampling in both drivers, the standalone renderer.
+        t13 = time.perf_counter()
+        extras = drive_phase13(dev, card)
+        log(f"[phase 13] took {time.perf_counter() - t13:.1f} s [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
@@ -2261,17 +2743,20 @@ def main(argv: list | None = None) -> int:
     # full-width track's render (phase 11: sphere csr_raster, cube
     # tile_raster) and csr_raster at each refinement video's, and csr_raster
     # at rank 0's render of the data-parallel run (phase 12) with its
-    # launches on each rank and the ranks.  Without phase 2, phase 12's
-    # figures are csr_raster's own.
+    # launches on each rank and the ranks; then each kernel at phase 13's
+    # renders (modelnet_, textured_eval_, textured_train_, standalone_ keys:
+    # lit colours, texture coordinates, the standalone renderer).  Without
+    # phase 2, the first later figures of a kernel are its own.
     base = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
-    if dp is not None and "csr_raster" not in results:
-        results["csr_raster"] = dict(dp)
+    for name, run in [("csr_raster", dp)] + [(n, next(iter(r.values()))) for n, r in extras.items()]:
+        if run is not None and name not in results:
+            results[name] = dict(run)
     kernels = []
     for name, r in results.items():
         entry = {"name": name, "route": "cuda", "source": "deepim_tpu_torch/csrc/raster.cu",
                  "replaces": REPLACES[name], "launches": r["launches"], **{key: r[key] for key in base},
                  "library_ms": None}
-        if name == "tile_raster":
+        if name == "tile_raster" and heavy is not None:
             entry.update({f"heavy_{key}": heavy[key] for key in base})
         for tag, run in (("driver", driver), ("train_driver", trainer)):
             if run is not None and name == "csr_raster":
@@ -2284,6 +2769,8 @@ def main(argv: list | None = None) -> int:
             entry.update({f"video_{cls}_{key}": videos[cls][key] for cls in ("cube", "sphere") for key in base})
         if dp is not None and name == "csr_raster":
             entry.update({f"dp_{key}": dp[key] for key in CHECK_KEYS + ("world",)})
+        for tag, run in extras.get(name, {}).items():
+            entry.update({f"{tag}_{key}": run[key] for key in CHECK_KEYS})
         kernels.append(entry)
     log(card)
     log(json.dumps({"kernels": kernels}))

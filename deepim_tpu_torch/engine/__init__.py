@@ -8,6 +8,7 @@ from deepim_tpu_torch.engine.losses import (
 from deepim_tpu_torch.engine.lr_schedule import lr_steps_from_config, warmup_multifactor_schedule
 from deepim_tpu_torch.engine.refine import (
     EngineConfig,
+    LightParams,
     MeshBuffers,
     Observation,
     refine,
@@ -29,7 +30,7 @@ from deepim_tpu_torch.engine.train import (
 __all__ = [
     "flow_loss", "mask_loss", "point_matching_loss", "se3_dist_loss", "smooth_l1",
     "lr_steps_from_config", "warmup_multifactor_schedule",
-    "EngineConfig", "MeshBuffers", "Observation", "refine", "refine_step",
+    "EngineConfig", "LightParams", "MeshBuffers", "Observation", "refine", "refine_step",
     "render_at_pose", "tune_raster_for_bank",
     "make_tracker", "track_video_sharded",
     "Optimizer", "TrainBatch", "TrainState", "compute_losses", "flow_weights_from_valid",

@@ -13,9 +13,11 @@ frame (the first iteration boxes the loader's mask); 'init', 'box_gt' and
 'mask_gt' keep the loader's observed mask.  Also supported: depth input
 channels (input_depth), the zoom factor from the image foregrounds
 (input_mask=False), per-class SE(3) heads selected by class_index (a
-network with num_regressors > 1) and Euler-angle rotation heads, and the
-image zoom in bf16 (zoom_dtype, bf16 on the card).  Texture sampling
-raises NotImplementedError.
+network with num_regressors > 1) and Euler-angle rotation heads, the
+image zoom in bf16 (zoom_dtype, bf16 on the card), renders lit by a point
+light at the current pose (Observation.light with mesh normals: the
+unseen-object evaluation) and per-fragment texture sampling
+(texture_sampling with a bank built with keep_textures).
 """
 from __future__ import annotations
 
@@ -41,10 +43,13 @@ from deepim_tpu_torch.ops.zoom import (
     zoom_masks,
     zoom_trans,
 )
+from deepim_tpu_torch.render.lighting import lit_vertex_colors
 from deepim_tpu_torch.render.rasterizer import (
     RasterConfig,
     expand_corners,
+    gather_corners,
     rasterize,
+    rasterize_textured,
     render_mask,
     uses_csr,
 )
@@ -129,8 +134,6 @@ def _check_supported(ecfg: EngineConfig) -> None:
         raise NotImplementedError(f"update_mask={ecfg.update_mask!r} is not ported yet")
     if ecfg.zoom_dtype not in _ZOOM_DTYPES:
         raise ValueError(f"zoom_dtype must be one of {sorted(_ZOOM_DTYPES)}, got {ecfg.zoom_dtype!r}")
-    if ecfg.texture_sampling:
-        raise NotImplementedError("texture_sampling is not ported yet (ROADMAP A9)")
 
 
 def tune_raster_for_bank(ecfg: EngineConfig, bank_arrays, k=None,
@@ -233,6 +236,9 @@ class MeshBuffers(NamedTuple):
     colors: torch.Tensor      # (B, V, 3)
     faces: torch.Tensor       # (B, F, 3) int32
     face_valid: torch.Tensor  # (B, F) bool
+    normals: torch.Tensor | None = None   # (B, V, 3), for the lit (ModelNet) render
+    uv: torch.Tensor | None = None        # (B, V, 2), for texture sampling
+    textures: torch.Tensor | None = None  # (B, TH, TW, 3)
     # Pose-independent face corners (vertices[faces], colors[faces]),
     # expanded once per batch so each render skips the gather.
     corners: torch.Tensor | None = None
@@ -246,24 +252,40 @@ class MeshBuffers(NamedTuple):
 
     @staticmethod
     def gather(bank_arrays, class_index, device="cuda") -> "MeshBuffers":
-        """bank_arrays: dict with vertices/colors/faces/face_valid, or that
-        4-tuple, of numpy arrays or tensors on any device; class_index:
-        (B,) ints (numpy or a tensor on any device).  Each array is indexed
-        where it lies, then moved to `device`."""
+        """bank_arrays: a dict with vertices/colors/faces/face_valid and
+        optionally normals, uv and textures (MeshBank.arrays()), or the
+        tuple (vertices, colors, faces, face_valid[, normals]), of numpy
+        arrays or tensors on any device; class_index: (B,) ints (numpy or a
+        tensor on any device).  Each array is indexed where it lies, then
+        moved to `device`."""
         dev = resolve_device(device)
+        keys = ("vertices", "colors", "faces", "face_valid", "normals", "uv", "textures")
         if isinstance(bank_arrays, dict):
-            arrs = [bank_arrays[k] for k in ("vertices", "colors", "faces", "face_valid")]
+            arrs = [bank_arrays.get(k) for k in keys]
         else:
-            arrs = list(bank_arrays[:4])
+            arrs = list(bank_arrays[:5]) + [None] * (len(keys) - len(bank_arrays[:5]))
         idx = torch.as_tensor(class_index).long()
         out = []
         for a in arrs:
-            a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
-            out.append(a[idx.to(a.device)].to(dev))
+            if a is not None:
+                a = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+                a = a[idx.to(a.device)].to(dev)
+            out.append(a)
         return MeshBuffers(*out).expand_corners()
 
     def to(self, device) -> "MeshBuffers":
         return MeshBuffers(*(None if x is None else x.to(device) for x in self))
+
+
+class LightParams(NamedTuple):
+    """Per-sample point-light parameters of the unseen-object render."""
+
+    position: torch.Tensor          # (B, 3) or (3,), camera frame
+    intensity: torch.Tensor         # (B, 3) or (3,)
+    brightness_ratio: torch.Tensor  # (B,) or a scalar
+
+    def to(self, device) -> "LightParams":
+        return LightParams(*(x.to(device) if isinstance(x, torch.Tensor) else x for x in self))
 
 
 class Observation(NamedTuple):
@@ -275,6 +297,7 @@ class Observation(NamedTuple):
     depth_observed: torch.Tensor | None      # (B, 1, H, W) metres; read with input_depth
     k: torch.Tensor                          # (3, 3)
     class_index: torch.Tensor | None = None  # (B,); selects the SE(3) heads of a num_regressors > 1 network
+    light: LightParams | None = None         # renders lit at the current pose (ModelNet)
 
     def to(self, device) -> "Observation":
         return Observation(*(None if x is None else x.to(device) for x in self))
@@ -286,18 +309,36 @@ class Observation(NamedTuple):
                            batch.depth_observed, batch.k, batch.class_index)
 
 
-def render_at_pose(meshes: MeshBuffers, pose, k, ecfg: EngineConfig, with_stats: bool = False,
-                   device="cuda"):
+def render_at_pose(meshes: MeshBuffers, pose, k, ecfg: EngineConfig, light: LightParams | None = None,
+                   with_stats: bool = False, device="cuda"):
     """Render the batch at `pose` -> (image (B, 3, H, W) RGB [0, 255],
-    depth (B, 1, H, W), mask (B, 1, H, W)[, dropped]).  No gradients."""
+    depth (B, 1, H, W), mask (B, 1, H, W)[, dropped]).  No gradients.
+
+    With `light` and mesh normals the vertex colours are lit at `pose`
+    (render/lighting.py), so their face corners are expanded anew; with
+    ecfg.texture_sampling, uv and textures and no light, the texture is
+    sampled per pixel (rasterize_textured)."""
     dev = resolve_device(device)
     meshes = meshes.to(dev)
+    pose, k = pose.to(dev), k.to(dev)
+    colors, corner_colors = meshes.colors, meshes.corner_colors
     with torch.no_grad():
-        rgb, depth, dropped = rasterize(
-            meshes.vertices, meshes.colors, meshes.faces, meshes.face_valid,
-            pose.to(dev), k.to(dev), ecfg.raster, corners=meshes.corners,
-            corner_colors=meshes.corner_colors, with_stats=True, device=dev,
-        )
+        if light is not None and meshes.normals is not None:
+            light = light.to(dev)
+            colors = lit_vertex_colors(meshes.vertices, meshes.normals, meshes.colors, pose,
+                                       light.position, light.intensity, light.brightness_ratio)
+            corner_colors = gather_corners(colors, meshes.faces)
+        if (ecfg.texture_sampling and meshes.uv is not None and meshes.textures is not None
+                and light is None):
+            rgb, depth, dropped = rasterize_textured(
+                meshes.vertices, meshes.uv, meshes.textures, meshes.faces, meshes.face_valid, pose, k,
+                ecfg.raster, with_stats=True, device=dev,
+            )
+        else:
+            rgb, depth, dropped = rasterize(
+                meshes.vertices, colors, meshes.faces, meshes.face_valid, pose, k, ecfg.raster,
+                corners=meshes.corners, corner_colors=corner_colors, with_stats=True, device=dev,
+            )
     rgb = rgb.permute(0, 3, 1, 2)
     depth = depth[:, None]
     mask = render_mask(depth, ecfg.mask_thresh)
@@ -328,7 +369,7 @@ def refine_step(model, obs: Observation, meshes: MeshBuffers, pose, ecfg: Engine
     t_stds = torch.tensor(ecfg.trans_stds, dtype=torch.float32, device=dev)
 
     image_rendered, depth_rendered, mask_rendered, dropped = render_at_pose(
-        meshes, pose, k, ecfg, with_stats=True, device=dev
+        meshes, pose, k, ecfg, obs.light, with_stats=True, device=dev
     )
     if ecfg.update_mask == "box_rendered":
         mask_obs = box_fill(mask_rendered)

@@ -100,8 +100,10 @@ def _device_batch(batch: dict, bank, dev):
 
 
 def bank_on_device(bank_arrays, dev):
-    """build_mesh_bank's four arrays as tensors on dev (gathered there per
-    batch)."""
+    """build_mesh_bank's arrays (its tuple or its texture-sampling dict)
+    as tensors on dev, in the same container (gathered there per batch)."""
+    if isinstance(bank_arrays, dict):
+        return {k: torch.as_tensor(a).to(dev) for k, a in bank_arrays.items()}
     return tuple(torch.as_tensor(a).to(dev) for a in bank_arrays)
 
 

@@ -1,21 +1,23 @@
-"""Host-side meshes, their OBJ loaders and padded class-indexable mesh
-banks (numpy copy of the parts of deepim_tpu/render/mesh.py the
-refinement and evaluation paths use).
+"""Host-side meshes, their OBJ and PLY loaders and padded
+class-indexable mesh banks (numpy copy of deepim_tpu/render/mesh.py).
 
 A textured model (textured.obj + texture_map.png) is baked into vertex
 colours at load time: vertices are split at uv seams and the texture is
-sampled once per vertex.  Texture-carrying meshes (uv + texture image)
-belong to the per-fragment texture-sampling render path, which this port
-does not have yet (ROADMAP A8), so Mesh holds vertex colours only.
+sampled once per vertex.  With keep_texture the mesh also keeps its
+seam-split uv and the texture image, which MeshBank(keep_textures=True)
+packs for the per-fragment texture-sampling render
+(rasterizer.rasterize_textured, dataset.TEXTURE_SAMPLING).
 """
 from __future__ import annotations
 
 import os
+import struct
 from dataclasses import dataclass
 
 import numpy as np
 
-from deepim_tpu_torch.utils.png import read_png
+from deepim_tpu_torch.render.lighting import compute_vertex_normals
+from deepim_tpu_torch.utils.png import read_png, write_png
 
 
 @dataclass
@@ -25,6 +27,16 @@ class Mesh:
     vertices: np.ndarray  # (V, 3) float32, model frame (meters)
     faces: np.ndarray     # (F, 3) int32
     colors: np.ndarray    # (V, 3) float32 in [0, 255] (RGB)
+    normals: np.ndarray | None = None  # (V, 3) float32, computed on first use
+    # Per-vertex texture coordinates and the texture image, for the
+    # per-fragment texture-sampling render; None = vertex colours only.
+    uv: np.ndarray | None = None       # (V, 2) float32 in [0, 1]
+    texture: np.ndarray | None = None  # (TH, TW, 3) float32 RGB in [0, 255]
+
+    def vertex_normals(self) -> np.ndarray:
+        if self.normals is None:
+            self.normals = compute_vertex_normals(self.vertices, self.faces)
+        return self.normals
 
     @property
     def num_vertices(self) -> int:
@@ -122,10 +134,9 @@ def load_textured_mesh(model_dir: str, obj_name: str = "textured.obj",
     """Load a LINEMOD-style model directory into a vertex-coloured Mesh:
     a vertex-coloured OBJ (colours in [0, 1] or [0, 255]), an OBJ with a
     texture image (baked per vertex after splitting uv seams), or an
-    uncoloured OBJ (grey 128)."""
-    if keep_texture:
-        raise NotImplementedError("keep_texture (per-fragment texture sampling) is not ported "
-                                  "yet (ROADMAP A8)")
+    uncoloured OBJ (grey 128).  With `keep_texture`, a textured model also
+    keeps its seam-split uv and the texture as float32 RGB (any alpha
+    channel dropped) for rasterize_textured."""
     v, vt, fv, fvt, vc = parse_obj(os.path.join(model_dir, obj_name))
     tex_path = os.path.join(model_dir, tex_name)
     if vc.shape[0] == v.shape[0] and not os.path.exists(tex_path):
@@ -135,11 +146,99 @@ def load_textured_mesh(model_dir: str, obj_name: str = "textured.obj",
         tex = read_png(tex_path)
         if tex.ndim == 2:
             tex = np.repeat(tex[:, :, None], 3, axis=2)
+        tex = tex[:, :, :3]
         v, vert_uv, fv = split_uv_seams(v, vt, fv, fvt)
-        colors = _sample_texture(tex[:, :, :3], vert_uv).astype(np.float32)
+        colors = _sample_texture(tex, vert_uv).astype(np.float32)
+        return Mesh(vertices=v, faces=fv, colors=colors,
+                    uv=vert_uv if keep_texture else None,
+                    texture=tex.astype(np.float32) if keep_texture else None)
     else:
         colors = np.full((v.shape[0], 3), 128.0, np.float32)
     return Mesh(vertices=v, faces=fv, colors=colors)
+
+
+# PLY property types -> (struct format, bytes).
+_PLY_TYPES = {
+    "float": ("f", 4), "float32": ("f", 4), "double": ("d", 8), "float64": ("d", 8),
+    "int": ("i", 4), "int32": ("i", 4), "uint": ("I", 4), "uint32": ("I", 4),
+    "short": ("h", 2), "ushort": ("H", 2), "uchar": ("B", 1), "uint8": ("B", 1),
+    "char": ("b", 1), "int8": ("b", 1),
+}
+
+
+def load_ply(path: str, scale: float = 1.0) -> Mesh:
+    """Read a PLY mesh (ascii or binary_little_endian), the BOP model
+    format: vertex x, y, z with optional nx, ny, nz and red, green, blue,
+    and polygon faces (fan-triangulated).  `scale` converts units (BOP
+    models are in millimetres: 0.001 gives metres).  Vertices without
+    colours are grey 128."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError(f"{path} is not a PLY file")
+        fmt = None
+        elems: list[tuple[str, int, list[tuple[str, str]]]] = []
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError(f"{path}: no end_header")
+            line = line.decode("ascii", "ignore").strip()
+            if line.startswith("format"):
+                fmt = line.split()[1]
+            elif line.startswith("element"):
+                _, name, count = line.split()
+                elems.append((name, int(count), []))
+            elif line.startswith("property"):
+                parts = line.split()
+                ptype = f"list:{parts[2]}:{parts[3]}" if parts[1] == "list" else parts[1]
+                elems[-1][2].append((parts[-1], ptype))
+            elif line.startswith("end_header"):
+                break
+        if fmt not in ("ascii", "binary_little_endian"):
+            raise ValueError(f"{path}: PLY format {fmt!r} is not read (ascii or binary_little_endian)")
+
+        verts, cols, norms, faces = [], [], [], []
+        for name, count, props in elems:
+            for _ in range(count):
+                record: dict = {}
+                if fmt == "ascii":
+                    vals = f.readline().split()
+                    vi = 0
+                    for pname, ptype in props:
+                        if ptype.startswith("list"):
+                            n = int(vals[vi])
+                            record[pname] = [float(x) for x in vals[vi + 1:vi + 1 + n]]
+                            vi += 1 + n
+                        else:
+                            record[pname] = float(vals[vi])
+                            vi += 1
+                else:
+                    for pname, ptype in props:
+                        if ptype.startswith("list"):
+                            _, cnt_t, val_t = ptype.split(":")
+                            cf, cs = _PLY_TYPES[cnt_t]
+                            n = struct.unpack("<" + cf, f.read(cs))[0]
+                            vf, vs = _PLY_TYPES[val_t]
+                            record[pname] = list(struct.unpack(f"<{n}{vf}", f.read(vs * n)))
+                        else:
+                            vf, vs = _PLY_TYPES[ptype]
+                            record[pname] = struct.unpack("<" + vf, f.read(vs))[0]
+                if name == "vertex":
+                    verts.append([record["x"], record["y"], record["z"]])
+                    if "red" in record:
+                        cols.append([record["red"], record["green"], record["blue"]])
+                    if "nx" in record:
+                        norms.append([record["nx"], record["ny"], record["nz"]])
+                elif name == "face":
+                    idx = [int(i) for i in record.get("vertex_indices", record.get("vertex_index"))]
+                    for i in range(1, len(idx) - 1):
+                        faces.append([idx[0], idx[i], idx[i + 1]])
+
+    v = np.asarray(verts, np.float32) * scale
+    colors = (np.asarray(cols, np.float32) if len(cols) == len(verts)
+              else np.full((len(verts), 3), 128.0, np.float32))
+    normals = np.asarray(norms, np.float32) if len(norms) == len(verts) else None
+    return Mesh(vertices=v, faces=np.asarray(faces, np.int32).reshape(-1, 3), colors=colors,
+                normals=normals)
 
 
 def write_obj(path: str, mesh: Mesh) -> None:
@@ -149,6 +248,23 @@ def write_obj(path: str, mesh: Mesh) -> None:
             f.write(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {c[0]:.4f} {c[1]:.4f} {c[2]:.4f}\n")
         for tri in mesh.faces:
             f.write(f"f {tri[0] + 1} {tri[1] + 1} {tri[2] + 1}\n")
+
+
+def write_textured_obj(model_dir: str, mesh: Mesh, obj_name: str = "textured.obj",
+                       tex_name: str = "texture_map.png") -> None:
+    """Write a mesh with uv and a texture as a LINEMOD-style model
+    directory: `obj_name` ('v', 'vt' and 'f a/a b/b c/c' lines, one texture
+    coordinate per vertex) and the texture, rounded to uint8, as
+    `tex_name`."""
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, obj_name), "w") as f:
+        for p in mesh.vertices:
+            f.write(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n")
+        for uv in mesh.uv:
+            f.write(f"vt {uv[0]:.6f} {uv[1]:.6f}\n")
+        for tri in mesh.faces + 1:
+            f.write(f"f {tri[0]}/{tri[0]} {tri[1]}/{tri[1]} {tri[2]}/{tri[2]}\n")
+    write_png(os.path.join(model_dir, tex_name), np.clip(np.round(mesh.texture), 0, 255).astype(np.uint8))
 
 
 @dataclass
@@ -162,9 +278,25 @@ class MeshBank:
     face_valid: np.ndarray  # (C, Fmax) bool
     num_vertices: np.ndarray  # (C,) int32
     num_faces: np.ndarray     # (C,) int32
+    normals: np.ndarray | None = None   # (C, Vmax, 3), for the lit render
+    uv: np.ndarray | None = None        # (C, Vmax, 2), for texture sampling
+    textures: np.ndarray | None = None  # (C, TH, TW, 3) zero-padded texture images
+
+    def with_normals(self, meshes: list[Mesh]) -> "MeshBank":
+        """Fill `normals` from each mesh's vertex normals; returns self."""
+        c, vmax, _ = self.vertices.shape
+        normals = np.zeros((c, vmax, 3), np.float32)
+        for i, m in enumerate(meshes):
+            normals[i, : m.num_vertices] = m.vertex_normals()
+        self.normals = normals
+        return self
 
     @staticmethod
-    def from_meshes(meshes: list[Mesh], pad_multiple: int = 256) -> "MeshBank":
+    def from_meshes(meshes: list[Mesh], pad_multiple: int = 256, keep_textures: bool = False) -> "MeshBank":
+        """Pack `meshes`.  With `keep_textures` every mesh must carry uv and
+        a texture: the textures are zero-padded to the largest (TH, TW) and
+        each mesh's uv rescaled so [0, 1] spans its own texture inside that
+        canvas (v up: v = 1 is row 0)."""
         def rnd(n):
             return ((n + pad_multiple - 1) // pad_multiple) * pad_multiple
 
@@ -184,14 +316,33 @@ class MeshBank:
             valid[i, : m.num_faces] = True
             nv[i] = m.num_vertices
             nf[i] = m.num_faces
-        return MeshBank(verts, cols, faces, valid, nv, nf)
+        bank = MeshBank(verts, cols, faces, valid, nv, nf)
+        if keep_textures:
+            if any(m.uv is None or m.texture is None for m in meshes):
+                raise ValueError("keep_textures requires uv + texture on every mesh")
+            th = max(m.texture.shape[0] for m in meshes)
+            tw = max(m.texture.shape[1] for m in meshes)
+            uv = np.zeros((c, vmax, 2), np.float32)
+            tex = np.zeros((c, th, tw, 3), np.float32)
+            for i, m in enumerate(meshes):
+                mh, mw = m.texture.shape[:2]
+                uv[i, : m.num_vertices, 0] = m.uv[:, 0] * ((mw - 1) / max(tw - 1, 1))
+                uv[i, : m.num_vertices, 1] = 1.0 - (1.0 - m.uv[:, 1]) * ((mh - 1) / max(th - 1, 1))
+                tex[i, :mh, :mw] = m.texture
+            bank.uv = uv
+            bank.textures = tex
+        return bank
 
     def arrays(self) -> dict[str, np.ndarray]:
-        """The four per-class arrays MeshBuffers.gather consumes."""
-        return {
-            "vertices": self.vertices, "colors": self.colors,
-            "faces": self.faces, "face_valid": self.face_valid,
-        }
+        """The per-class arrays MeshBuffers.gather consumes: vertices,
+        colors, faces and face_valid, and normals, uv and textures when
+        the bank has them."""
+        out = {"vertices": self.vertices, "colors": self.colors, "faces": self.faces,
+               "face_valid": self.face_valid}
+        for key in ("normals", "uv", "textures"):
+            if getattr(self, key) is not None:
+                out[key] = getattr(self, key)
+        return out
 
 
 def make_test_cube(size: float = 0.1) -> Mesh:
@@ -297,7 +448,8 @@ def order_faces_for_binning(mesh: Mesh) -> Mesh:
     d_max = max(float(d.max()), 1e-12)
     band = np.ceil(np.log2(d_max / np.maximum(d, 1e-12))).astype(np.int64)
     order = np.argsort(band, kind="stable")
-    return Mesh(vertices=mesh.vertices, faces=mesh.faces[order].copy(), colors=mesh.colors)
+    return Mesh(vertices=mesh.vertices, faces=mesh.faces[order].copy(), colors=mesh.colors,
+                normals=mesh.normals, uv=mesh.uv, texture=mesh.texture)
 
 
 def make_mixed_detail_mesh(seed: int = 0) -> Mesh:
@@ -316,3 +468,34 @@ def make_mixed_detail_mesh(seed: int = 0) -> Mesh:
         hue = rng.uniform(80, 220, 3).astype(np.float32)
         m.colors = np.clip(m.colors * 0.5 + hue, 0, 255).astype(np.float32)
     return order_faces_for_binning(merge_meshes(parts))
+
+
+def smooth_texture(size: int = 256, seed: int = 0, cells: int = 16) -> np.ndarray:
+    """A band-limited (photograph-like) (size, size, 3) float32 RGB
+    texture in [40, 215]: a seeded cells x cells grid of uniform colours,
+    upsampled bilinearly."""
+    rng = np.random.RandomState(seed)
+    coarse = rng.uniform(40, 215, (cells, cells, 3)).astype(np.float32)
+    x = np.linspace(0.0, cells - 1, size)
+    i0 = np.minimum(np.floor(x).astype(np.int64), cells - 2)
+    f = (x - i0).astype(np.float32)
+    rows = coarse[i0] * (1 - f)[:, None, None] + coarse[i0 + 1] * f[:, None, None]
+    return (rows[:, i0] * (1 - f)[None, :, None] + rows[:, i0 + 1] * f[None, :, None]).astype(np.float32)
+
+
+def make_uv_sphere(radius: float, n_lat: int, n_lon: int, texture: np.ndarray) -> Mesh:
+    """Latitude/longitude sphere (2 n_lat n_lon faces) with per-vertex uv
+    (a duplicated seam column, u = longitude, v = 1 at the north pole),
+    the texture and its colours baked per vertex."""
+    i, j = np.meshgrid(np.arange(n_lat + 1), np.arange(n_lon + 1), indexing="ij")
+    theta, phi = np.pi * i / n_lat, 2 * np.pi * j / n_lon
+    verts = np.stack([radius * np.sin(theta) * np.cos(phi), radius * np.sin(theta) * np.sin(phi),
+                      radius * np.cos(theta)], axis=-1).reshape(-1, 3)
+    uv = np.stack([j / n_lon, 1.0 - i / n_lat], axis=-1).reshape(-1, 2).astype(np.float32)
+    stride = n_lon + 1
+    a = (np.arange(n_lat)[:, None] * stride + np.arange(n_lon)[None, :]).reshape(-1)
+    faces = np.stack([np.stack([a, a + 1, a + stride], 1), np.stack([a + 1, a + stride + 1, a + stride], 1)],
+                     axis=1).reshape(-1, 3)
+    texture = np.asarray(texture, np.float32)
+    return Mesh(vertices=verts.astype(np.float32), faces=faces.astype(np.int32),
+                colors=_sample_texture(texture, uv).astype(np.float32), uv=uv, texture=texture)

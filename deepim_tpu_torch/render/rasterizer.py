@@ -16,6 +16,8 @@ Pipeline, all batched:
      csr_planes_raster or tile_raster: CUDA on the card, plain twins on
      CPU);
   6. untiling into (B, H, W).
+rasterize_textured runs the same pipeline on texture coordinates in place
+of colours and samples the texture once per pixel (texture_gather).
 
 Camera convention: pixel (i, j) is image-plane point u = fx x/z + cx = j,
 v = fy y/z + cy = i; depth is camera-frame z.  Faces with a corner outside
@@ -278,13 +280,16 @@ def _expand_k(k, b):
     return k.expand(b, 3, 3) if k.dim() == 2 else k
 
 
-def expand_corners(vertices, colors, faces):
-    """(B, V, 3) x2 + (B, F, 3) -> corners, corner_colors (B, F, 3, 3)."""
+def gather_corners(attr, faces):
+    """(B, V, 3) vertex attribute + (B, F, 3) faces -> (B, F, 3, 3)."""
     b, nf, _ = faces.shape
     idx = faces.reshape(b, nf * 3).long()[..., None].expand(b, nf * 3, 3)
-    corners = torch.gather(vertices, 1, idx).reshape(b, nf, 3, 3)
-    corner_colors = torch.gather(colors, 1, idx).reshape(b, nf, 3, 3)
-    return corners, corner_colors
+    return torch.gather(attr, 1, idx).reshape(b, nf, 3, 3)
+
+
+def expand_corners(vertices, colors, faces):
+    """(B, V, 3) x2 + (B, F, 3) -> corners, corner_colors (B, F, 3, 3)."""
+    return gather_corners(vertices, faces), gather_corners(colors, faces)
 
 
 def csr_dropped_pairs(vertices, faces, face_valid, poses, k, cfg: RasterConfig,
@@ -476,6 +481,54 @@ def _untile(plan: _Plan, out, cfg):
         .reshape(b, t_y * th, t_x * tw, 4)
     )[:, : cfg.height, : cfg.width]
     return img[..., 0:3], img[..., 3], plan.dropped
+
+
+def texture_gather(textures: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Per-pixel bilinear texture lookup (the reference fragment shader's
+    texture2D).  textures: (B, TH, TW, 3); u, v: (B, H, W) texture
+    coordinates, clamped to [0, 1], v up (v = 1 is row 0).  Returns
+    (B, H, W, 3).  The four taps and weights are the JAX package's, in its
+    order (F.grid_sample weighs them in another)."""
+    b, th, tw, _ = textures.shape
+    up = torch.clamp(u, 0.0, 1.0) * (tw - 1)
+    vp = (1.0 - torch.clamp(v, 0.0, 1.0)) * (th - 1)
+    x0 = torch.floor(up).int()
+    y0 = torch.floor(vp).int()
+    x1 = torch.clamp(x0 + 1, max=tw - 1)
+    y1 = torch.clamp(y0 + 1, max=th - 1)
+    fx = (up - x0)[..., None]
+    fy = (vp - y0)[..., None]
+    flat = textures.reshape(b, th * tw, 3)
+
+    def pick(yy, xx):
+        idx = (yy * tw + xx).reshape(b, -1, 1).long().expand(-1, -1, 3)
+        return torch.gather(flat, 1, idx).reshape(u.shape + (3,))
+
+    return (
+        pick(y0, x0) * (1 - fx) * (1 - fy)
+        + pick(y0, x1) * fx * (1 - fy)
+        + pick(y1, x0) * (1 - fx) * fy
+        + pick(y1, x1) * fx * fy
+    )
+
+
+def rasterize_textured(vertices, uv, textures, faces, face_valid, poses, k,
+                       cfg: RasterConfig = RasterConfig(), with_stats: bool = False, device="cuda"):
+    """Batched render with per-fragment texture sampling: the same pipeline
+    and kernels as `rasterize`, interpolating (u, v, 0) perspective-
+    correctly in place of colours, then one texture_gather per pixel.
+
+    vertices: (B, V, 3); uv: (B, V, 2); textures: (B, TH, TW, 3) in
+    [0, 255]; faces/face_valid/poses/k as in `rasterize`.  Returns rgb
+    (B, H, W, 3), 0 where nothing is hit, and depth (B, H, W)[, dropped]."""
+    dev = resolve_device(device)
+    uv = uv.to(dev)
+    uvz = torch.cat([uv, torch.zeros_like(uv[..., :1])], dim=-1)
+    uv_img, depth, dropped = rasterize(vertices, uvz, faces, face_valid, poses, k, cfg,
+                                       with_stats=True, device=dev)
+    rgb = texture_gather(textures.to(dev), uv_img[..., 0], uv_img[..., 1])
+    rgb = torch.where((depth > 0)[..., None], rgb, torch.zeros_like(rgb))
+    return (rgb, depth, dropped) if with_stats else (rgb, depth)
 
 
 def rasterize_single(vertices, colors, faces, face_valid, pose, k, cfg: RasterConfig, device="cuda"):

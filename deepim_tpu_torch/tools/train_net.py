@@ -62,13 +62,16 @@ def load_pairdbs(cfg: Config):
 
 def build_mesh_bank(cfg: Config):
     """Load every class's model from dataset.model_dir into one bank.
-    Returns (vertices, colors, faces, face_valid) numpy arrays, the tuple
-    MeshBuffers.gather takes."""
-    if cfg.dataset.TEXTURE_SAMPLING:
-        raise NotImplementedError("dataset.TEXTURE_SAMPLING is not ported yet (ROADMAP A9)")
-    meshes = [load_textured_mesh(os.path.join(cfg.dataset.model_dir, cls))
+    Returns the (vertices, colors, faces, face_valid) numpy arrays, or,
+    with dataset.TEXTURE_SAMPLING, MeshBank.arrays()'s dict, which adds
+    each class's uv and zero-padded texture (load_textured_mesh with
+    keep_texture); MeshBuffers.gather takes either."""
+    keep_tex = cfg.dataset.TEXTURE_SAMPLING
+    meshes = [load_textured_mesh(os.path.join(cfg.dataset.model_dir, cls), keep_texture=keep_tex)
               for cls in cfg.dataset.class_name]
-    bank = MeshBank.from_meshes(meshes)
+    bank = MeshBank.from_meshes(meshes, keep_textures=keep_tex)
+    if keep_tex:
+        return bank.arrays()
     return bank.vertices, bank.colors, bank.faces, bank.face_valid
 
 

@@ -164,7 +164,8 @@ def test_mesh_gather_on_card_tensors():
     got = MeshBuffers.gather(bank, torch.as_tensor(sc.cls_idx).to(dev), device=dev)
     ref = MeshBuffers.gather(sc.bank_arrays, sc.cls_idx, device="cpu")
     for a, b in zip(got, ref):
-        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+        assert (a is None and b is None) or (a.device.type == "cuda" and torch.equal(a.cpu(), b))
+    assert got.normals is None and got.uv is None and got.textures is None
 
 
 def test_planes_wrapper_validates_card_inputs():
@@ -319,3 +320,66 @@ def test_bf16_zoom_card_equals_cpu():
         assert a.dtype == torch.bfloat16
         ulp = 2.0 ** (torch.floor(torch.log2(b.float().abs().clamp(min=2.0 ** -126))) - 7)
         assert bool(((a.float().cpu() - b.float()).abs() <= ulp).all())
+
+
+def _uv_lit_scene(attr: str, n_lat: int, n_lon: int, dev):
+    """Vertices, per-vertex attributes and the rest of a b=2 render of a
+    textured uv sphere on `dev`, the attributes being the kernels' new
+    inputs: 'uv' the texture coordinates (u, v, 0) of rasterize_textured,
+    'lit' the colours lit by a point light at the render's poses."""
+    from deepim_tpu_torch.render.lighting import lit_vertex_colors
+    from deepim_tpu_torch.render.mesh import MeshBank, make_uv_sphere, smooth_texture
+
+    mesh = make_uv_sphere(0.05, n_lat, n_lon, smooth_texture(64))
+    bank = MeshBank.from_meshes([mesh], pad_multiple=64, keep_textures=True).with_normals([mesh])
+    rep = [torch.from_numpy(np.repeat(a, 2, 0)).to(dev)
+           for a in (bank.vertices, bank.colors, bank.faces, bank.face_valid, bank.uv, bank.normals)]
+    verts, cols, faces, valid, uv, normals = rep
+    pose = np.tile(np.eye(3, 4, dtype=np.float32), (2, 1, 1))
+    pose[:, :3, :3] = np.array([[[0.8, -0.6, 0], [0.6, 0.8, 0], [0, 0, 1]], np.eye(3)], np.float32)
+    pose[:, 2, 3] = (0.5, 0.6)
+    pose = torch.from_numpy(pose).to(dev)
+    if attr == "uv":
+        attrs = torch.cat([uv, torch.zeros_like(uv[..., :1])], -1)
+    else:
+        attrs = lit_vertex_colors(verts, normals, cols, pose, torch.tensor([0.1, -0.2, -0.4], device=dev),
+                                  torch.tensor([1.1, 0.9, 1.0], device=dev), torch.tensor([0.4, 0.2], device=dev))
+    return verts, attrs, faces, valid, pose, bank
+
+
+@pytest.mark.parametrize("attr", ["uv", "lit"])
+@pytest.mark.parametrize("binning,csr_kernel", list(_KERNEL_OF))
+def test_kernel_equals_twin_on_uv_and_lit_attributes(binning, csr_kernel, attr):
+    """Each kernel and its plain twin on the same card inputs when the
+    attributes are texture coordinates in [0, 1] or lit colours: bit-equal
+    outputs."""
+    dev = _need_card()
+    verts, attrs, faces, valid, pose, _ = _uv_lit_scene(attr, 16, 32, dev)
+    cfg = RasterConfig(height=96, width=128, znear=0.05, zfar=10.0, binning=binning, csr_kernel=csr_kernel)
+    for name, args in kernel_inputs(verts, attrs, faces, valid, pose, torch.from_numpy(K96).to(dev), cfg,
+                                    device=dev):
+        assert name == _KERNEL_OF[binning, csr_kernel]
+        out = KERNELS[name](*args)
+        ref = TWINS[name](*args)
+        torch.cuda.synchronize()
+        assert (out[:, 0] > 0).any()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("n_lat,n_lon", [(16, 32), (24, 48)])
+def test_rasterize_textured_card_equals_cpu(n_lat, n_lon):
+    """rasterize_textured on the card (tile_raster for 1,024 faces,
+    csr_raster for 2,304) against the CPU: hit masks exact, depth atol
+    1e-5, rgb atol 5e-3."""
+    from deepim_tpu_torch.render.rasterizer import rasterize_textured
+
+    dev = _need_card()
+    verts, _, faces, valid, pose, bank = _uv_lit_scene("uv", n_lat, n_lon, "cpu")
+    args = (verts, torch.from_numpy(np.repeat(bank.uv, 2, 0)), torch.from_numpy(np.repeat(bank.textures, 2, 0)),
+            faces, valid, pose, torch.from_numpy(K96),
+            RasterConfig(height=96, width=128, znear=0.05, zfar=10.0, bin_pairs=n_lat * n_lon * 8))
+    rgb_g, depth_g = rasterize_textured(*args, device=dev)
+    rgb_c, depth_c = rasterize_textured(*args, device="cpu")
+    assert torch.equal(depth_g.cpu() > 0, depth_c > 0) and (depth_c > 0).sum() > 1000
+    torch.testing.assert_close(depth_g.cpu(), depth_c, atol=1e-5, rtol=0)
+    torch.testing.assert_close(rgb_g.cpu(), rgb_c, atol=5e-3, rtol=0)

@@ -336,8 +336,10 @@ def test_load_textured_mesh_equal(devkit, tmp_path, kind):
     assert b.diameter() == pytest.approx(a.diameter(), abs=1e-7)
     if kind == "textured":
         assert b.num_vertices == 6  # 4 positions, two of them split at a seam
-        with pytest.raises(NotImplementedError, match="A8"):
-            t_mesh.load_textured_mesh(str(model_dir), keep_texture=True)
+        kept, j_kept = (m.load_textured_mesh(str(model_dir), keep_texture=True) for m in (t_mesh, j_mesh))
+        np.testing.assert_array_equal(kept.uv, j_kept.uv)
+        np.testing.assert_array_equal(kept.texture, j_kept.texture)
+        np.testing.assert_array_equal(kept.colors, b.colors)
 
 
 def test_write_obj_round_trip(tmp_path):

@@ -153,7 +153,7 @@ def test_unported_options_raise():
     _, t = _scenes("box_gt")
     _, model = _weights((64, 64))
     _, t_obs = _observations(None, t, K64)
-    for kw in (dict(texture_sampling=True),):
+    for kw in (dict(update_mask="box_flow"),):
         ecfg = t.ecfg.__class__(**{**t.ecfg.__dict__, **kw})
         with pytest.raises(NotImplementedError):
             t_refine_step(model, t_obs, t.meshes, torch.from_numpy(t.pose0), ecfg, device="cpu")

@@ -538,7 +538,8 @@ def test_mesh_buffers_gather_accepts_tensors():
                                                              cls.tolist())):
         got = MeshBuffers.gather(bank, idx, device="cpu")
         for a, b in zip(got, ref):
-            assert torch.equal(a, b)
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert got.normals is None and got.uv is None and got.textures is None
 
 
 def test_train_batch_from_scene():
