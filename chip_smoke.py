@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # every phase: one CUDA device, nvcc on PATH or in $CUDA_HOME
     python3 chip_smoke.py --phases 12   # phase 1 (device, build) and phase 12 alone, e.g. on four cards
     python3 chip_smoke.py --phases 13   # phase 1 and phase 13 alone
+    python3 chip_smoke.py --phases 14   # phase 1 and phase 14 (the benchmark runners) alone
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device and build: the card's name and power limit, torch's CUDA
@@ -189,6 +190,25 @@ Phases (each raises on failure; the script then exits non-zero):
      once at 720x540 (BOP's size, tiles of 16 that do not divide it) and a
      320-face icosphere (tile_raster); launches exact; csr_raster and
      tile_raster each against its twin at a standalone render.
+ 14. the synthetic accuracy and occlusion benchmarks through their runners'
+     main(argv), under deepim_tpu_torch/_build/phase14/: (A)
+     tools/benchmark_multiclass at 128x128, 4 classes of
+     make_benchmark_classes at subdiv 3 (1,280 faces: tile_raster's dense
+     path), 32 training and 8 test pairs a class, 2 epochs of batch 32 x
+     TRAIN_ITER_SIZE 2, bf16 (the drivers' default): generation, train_net,
+     test_deepim and the init-pose rows; (B) tools/benchmark_occlusion on
+     the same classes, 8 training and 8 test scenes, one fine-tune epoch
+     from (A)'s checkpoint (viz_visible flow weights), the box_rendered
+     eval; (C) both generators at 64x64 (and synth_data's --occlusion front
+     door) on the card and on the CPU: every file equal, PNGs after
+     decoding.  Checked: tile_raster and no other kernel launched exactly
+     the count the code plans (each run's renders: generation, one a
+     training step's inner iteration, pred_eval's and eval_flow_epe's one
+     an iteration), bit-equal to its twin at (A)'s training render and
+     (B)'s eval render; every table value finite, no pair dropped, epoch
+     2's mean loss below epoch 1's.  It prints the generation seconds a
+     pair, samples/s per epoch, eval frames/s and both tables beside their
+     init rows.
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -2561,7 +2581,198 @@ def drive_phase13(dev, card: str) -> dict:
     return out
 
 
-ALL_PHASES = set(range(1, 14))
+# Phase 14: the synthetic accuracy and occlusion benchmarks through their
+# runners (tools/benchmark_multiclass.py, tools/benchmark_occlusion.py), cut
+# from the 13-class, 256-pair, 30-epoch protocol to fit about two minutes.
+PHASE14_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase14")
+BENCH_SIZE = 128      # the 128x128 proxy protocol's frame
+BENCH_CLASSES = 4     # of make_benchmark_classes, at subdiv 3: 1,280 faces (tile_raster's dense path)
+BENCH_TRAIN, BENCH_VAL = 32, 8   # pairs a class
+BENCH_EPOCHS = 2
+BENCH_BATCH = 32
+BENCH_ITER_SIZE = 2
+OCC_SCENES = 8        # occlusion training scenes, and as many test scenes
+OCC_ITER_SIZE = 4     # benchmark_occlusion's --train-iter-size default
+TEST_ITERS = 4        # both runners' TEST.test_iter
+SMALL_GEN = 64        # 14C's frame
+
+
+def bench_argv(devkit: str) -> tuple[list, list]:
+    """The multiclass and occlusion runners' flags of 14A and 14B."""
+    common = ["--size", str(BENCH_SIZE), "--classes", str(BENCH_CLASSES), "--subdiv", "3", "--batch",
+              str(BENCH_BATCH), "--out", devkit, "--device", "cuda"]
+    return (common + ["--n-train", str(BENCH_TRAIN), "--n-val", str(BENCH_VAL), "--epochs", str(BENCH_EPOCHS),
+                      "--train-iter-size", str(BENCH_ITER_SIZE)],
+            common + ["--epochs", str(BENCH_EPOCHS), "--n-scenes", str(OCC_SCENES), "--train-scenes",
+                      str(OCC_SCENES), "--finetune-epochs", "1"])
+
+
+def bench_render_check(cfg, train: bool, image_set: str, dev, card: str, shape: str) -> dict:
+    """tile_raster against its twin, bit for bit, at one render of a run:
+    a batch of BENCH_BATCH initial poses (as many of each class's pairs in
+    image_set), the class meshes and the run's raster settings."""
+    bank = build_mesh_bank(cfg)
+    ecfg = EngineConfig.from_config(cfg, train=train, bank_arrays=bank, device=dev)
+    classes = list(cfg.dataset.class_name)
+    per = BENCH_BATCH // len(classes)
+    idx, poses = [], []
+    for ci, cls in enumerate(classes):
+        _, recs = load_gt_pairdb(cfg, "LM6D_REFINE", image_set + cls, cls, cfg.dataset.root_path,
+                                 cfg.dataset.dataset_path)
+        idx += [ci] * per
+        poses += [r["pose_rendered"] for r in recs[:per]]
+    m = MeshBuffers.gather(bank, np.asarray(idx), device=dev)
+    plan = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(np.stack(poses)),
+                         torch.from_numpy(cfg.dataset.intrinsic_matrix()), ecfg.raster, corners=m.corners,
+                         corner_colors=m.corner_colors, device=dev)
+    if [name for name, _ in plan] != ["tile_raster"]:
+        raise AssertionError(f"{shape}: a render plans {[name for name, _ in plan]}")
+    check = check_kernel("tile_raster", plan[0][1], card, shape=shape)
+    if check["max_abs_err"] != 0.0:
+        raise AssertionError(f"{shape}: tile_raster differs from its twin by {check['max_abs_err']}")
+    del check["out"]
+    return check
+
+
+def run_bench(label: str, main, argv: list, expect: int, pairs: int, card: str) -> dict:
+    """One runner's main(argv) with the launch counters zeroed just before
+    and read just after: tile_raster `expect` times and nothing else, every
+    table value finite, `pairs` tested and none dropped, every epoch's
+    losses finite."""
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != {"csr_raster": 0, "csr_planes_raster": 0, "tile_raster": expect}:
+        raise AssertionError(f"{label}: launches {counts}, want tile_raster {expect} and nothing else")
+    table = out["table"]
+    values = list(table["init"].values()) + [v for row in table["iters"] for v in row.values()]
+    if len(table["iters"]) != TEST_ITERS or not np.isfinite(values).all():
+        raise AssertionError(f"{label}: table {table}")
+    run = out["run"]
+    if run["raster_dropped"] or run["pairs"] != pairs:
+        raise AssertionError(f"{label}: {run['pairs']} pairs tested, {run['raster_dropped']} dropped face-tile pairs")
+    for e in out["epochs"]:
+        if e["nonfinite_losses"] or e["raster_dropped"]:
+            raise AssertionError(f"{label}: epoch {e['epoch']}: {e['nonfinite_losses']} non-finite loss values, "
+                                 f"{e['raster_dropped']} dropped face-tile pairs")
+    gen = out["generation"]
+    n_gen = gen.get("pairs", gen.get("scenes"))
+    log(f"[{label}] {wall:.3f} s in all; generation {gen['seconds']:.3f} s for {n_gen} "
+        f"{'pairs' if 'pairs' in gen else 'scenes'} ({gen['seconds'] / n_gen:.4f} s each); launches {counts} "
+        f"[{card}]")
+    for e in out["epochs"]:
+        log(f"[{label}] epoch {e['epoch']}: {e['samples'] / e['loop_s']:.2f} samples/s ({e['samples']} samples in "
+            f"{e['loop_s']:.3f} s; blocked on the loader {e['wait_s']:.3f} s, in train steps {e['step_s']:.3f} s); "
+            f"mean loss {float(e['metrics']['total'].mean()):.4f} [{card}]")
+    log(f"[{label}] test_deepim: {run['pairs']} pairs, {run['pairs'] / (run['data_s'] + run['net_s']):.2f} frames/s "
+        f"over pred_eval's loop (data {run['data_s']:.3f} s + net {run['net_s']:.3f} s); init "
+        f"{json.dumps(table['init'])}; iterations {json.dumps(table['iters'])} [{card}]")
+    return out
+
+
+def generator_check(dev, card: str) -> None:
+    """14C: both generators and synth_data's --occlusion front door on the
+    card and on the CPU; every file equal (PNGs after decoding)."""
+    from deepim_tpu_torch.render.mesh import make_benchmark_classes
+    from deepim_tpu_torch.tools import synth_data
+    from deepim_tpu_torch.tools.benchmark_multiclass import benchmark_k
+
+    meshes = make_benchmark_classes(2, subdiv=3)
+    k = benchmark_k(SMALL_GEN, SMALL_GEN)
+    raster = RasterConfig(height=SMALL_GEN, width=SMALL_GEN, znear=0.05, zfar=10.0)
+    runs = {
+        "single": lambda out, d: synth_data.generate_dataset(out, meshes, k, n_train=2, n_val=2, height=SMALL_GEN,
+                                                             width=SMALL_GEN, z_range=(0.45, 0.75),
+                                                             raster_cfg=raster, device=d),
+        "occlusion": lambda out, d: synth_data.generate_occlusion_dataset(
+            out, meshes, k, n_scenes=4, n_train=2, height=SMALL_GEN, width=SMALL_GEN, z_range=(0.55, 0.75),
+            lateral_spread=0.1, raster_cfg=raster, device=d),
+        "main --occlusion": lambda out, d: synth_data.main(["--out", out, "--occlusion", "--n-train", "0",
+                                                            "--n-val", "2", "--device", str(d)]),
+    }
+    # Renders: 2 classes x 4 pairs x 2; 4 scenes x 2 classes x 2; 2 scenes x 2 classes x 2.
+    renders = {"single": 16, "occlusion": 16, "main --occlusion": 8}
+    notes = []
+    for what, gen in runs.items():
+        dirs = {d: os.path.join(PHASE14_DIR, "small", what.replace(" ", "_").replace("-", ""), d)
+                for d in ("cuda", "cpu")}
+        torch.cuda.synchronize()
+        rk.reset_launch_counts()
+        t0 = time.perf_counter()
+        gen(dirs["cuda"], dev)
+        card_s = time.perf_counter() - t0
+        counts = launch_counts()
+        if counts != {"csr_raster": 0, "csr_planes_raster": 0, "tile_raster": renders[what]}:
+            raise AssertionError(f"generators {what}: launches {counts}, want tile_raster {renders[what]}")
+        gen(dirs["cpu"], "cpu")
+        files = sorted(os.path.relpath(os.path.join(r, f), dirs["cpu"])
+                       for r, _, fs in os.walk(dirs["cpu"]) for f in fs)
+        mine = sorted(os.path.relpath(os.path.join(r, f), dirs["cuda"])
+                      for r, _, fs in os.walk(dirs["cuda"]) for f in fs)
+        if files != mine:
+            raise AssertionError(f"generators {what}: the card wrote {sorted(set(mine) ^ set(files))} apart")
+        pngs = 0
+        for rel in files:
+            a, b = (os.path.join(dirs[d], rel) for d in ("cuda", "cpu"))
+            if rel.endswith(".png"):
+                same = np.array_equal(read_png(a), read_png(b))
+                pngs += 1
+            else:
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    same = fa.read() == fb.read()
+            if not same:
+                raise AssertionError(f"generators {what}: {rel} differs between the card and the CPU")
+        notes.append(f"{what}: {len(files)} files ({pngs} PNGs) equal, card {card_s:.3f} s")
+    log("[generators] 64x64 benchmark classes (and synth_data's 480x640 cube and sphere for main --occlusion), "
+        "card vs CPU: " + "; ".join(notes) + f" [{card}]")
+
+
+def drive_phase14(dev, card: str) -> dict:
+    """Phase 14: 14A, 14B, then 14C.  Returns tile_raster's checks at
+    14A's training render and at 14B's eval render, each with its run's
+    launches."""
+    from deepim_tpu_torch.tools import benchmark_multiclass, benchmark_occlusion
+
+    shutil.rmtree(PHASE14_DIR, ignore_errors=True)
+    devkit = os.path.join(PHASE14_DIR, "bench")
+    multiclass_argv, occlusion_argv = bench_argv(devkit)
+    c, evals = BENCH_CLASSES, 2 * TEST_ITERS  # pred_eval's refine and eval_flow_epe each render once an iteration
+    batches = -(-BENCH_VAL // BENCH_BATCH)
+    # 14A: each pair's observed and initial pose rendered once; one render a
+    # training step's inner iteration; one batch a class in the eval.
+    expect_a = (c * (BENCH_TRAIN + BENCH_VAL) * 2 + BENCH_EPOCHS * (c * BENCH_TRAIN // BENCH_BATCH) * BENCH_ITER_SIZE
+                + c * batches * evals)
+    bench = run_bench("benchmark_multiclass", benchmark_multiclass.main, multiclass_argv, expect_a, c * BENCH_VAL,
+                      card)
+    losses = [float(e["metrics"]["total"].mean()) for e in bench["epochs"]]
+    if len(losses) != BENCH_EPOCHS or not losses[1] < losses[0]:
+        raise AssertionError(f"benchmark_multiclass: mean loss by epoch {losses}: epoch 2 not below epoch 1")
+    args = benchmark_multiclass.parse_args(multiclass_argv)
+    classes = sorted(benchmark_multiclass.make_benchmark_classes(c, 3))
+    cfg = benchmark_multiclass.benchmark_config(args, devkit, classes, benchmark_multiclass.benchmark_k(
+        BENCH_SIZE, BENCH_SIZE))
+    train_check = bench_render_check(cfg, True, "train_", dev, card, "bench13 train")
+    train_check["launches"] = expect_a
+
+    # 14B: each scene renders every class at its gt and initial pose.
+    batches = -(-OCC_SCENES // BENCH_BATCH)
+    expect_b = (2 * OCC_SCENES * c * 2 + (OCC_SCENES * c // BENCH_BATCH) * OCC_ITER_SIZE + c * batches * evals)
+    run_bench("benchmark_occlusion", benchmark_occlusion.main, occlusion_argv, expect_b, c * OCC_SCENES, card)
+    occ_args = benchmark_occlusion.parse_args(occlusion_argv)
+    occ_cfg = benchmark_occlusion.occlusion_config(occ_args, f"{devkit}_occ{OCC_SCENES}_{OCC_SCENES}", classes,
+                                                   benchmark_multiclass.benchmark_k(BENCH_SIZE, BENCH_SIZE))
+    eval_check = bench_render_check(occ_cfg, False, "val_", dev, card, "occlusion eval")
+    eval_check["launches"] = expect_b
+
+    generator_check(dev, card)
+    return {"tile_raster": {"bench_train": train_check, "occ_eval": eval_check}}
+
+
+ALL_PHASES = set(range(1, 15))
 KERNEL_PHASES = set(range(2, 7))  # phase 2's scenes carry phases 3-6: they run together
 
 
@@ -2586,7 +2797,7 @@ def main(argv: list | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke run of deepim_tpu_torch")
-    ap.add_argument("--phases", default="1-13", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
+    ap.add_argument("--phases", default="1-14", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
                     "always runs, 2-6 run together, 11 needs 8)")
     ap.add_argument("--dp-rank", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 12
     args = ap.parse_args(argv)
@@ -2733,6 +2944,12 @@ def main(argv: list | None = None) -> int:
         t13 = time.perf_counter()
         extras = drive_phase13(dev, card)
         log(f"[phase 13] took {time.perf_counter() - t13:.1f} s [{card}]")
+    if 14 in phases:
+        # 14. The synthetic accuracy and occlusion benchmarks.
+        t14 = time.perf_counter()
+        for name, runs in drive_phase14(dev, card).items():
+            extras.setdefault(name, {}).update(runs)
+        log(f"[phase 14] took {time.perf_counter() - t14:.1f} s [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
@@ -2745,7 +2962,8 @@ def main(argv: list | None = None) -> int:
     # at rank 0's render of the data-parallel run (phase 12) with its
     # launches on each rank and the ranks; then each kernel at phase 13's
     # renders (modelnet_, textured_eval_, textured_train_, standalone_ keys:
-    # lit colours, texture coordinates, the standalone renderer).  Without
+    # lit colours, texture coordinates, the standalone renderer) and
+    # tile_raster at phase 14's (bench_train_, occ_eval_ keys).  Without
     # phase 2, the first later figures of a kernel are its own.
     base = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     for name, run in [("csr_raster", dp)] + [(n, next(iter(r.values()))) for n, r in extras.items()]:

@@ -417,6 +417,56 @@ def make_icosphere(radius: float = 0.05, subdiv: int = 2) -> Mesh:
     )
 
 
+def make_colored_mesh(vertices: np.ndarray, faces: np.ndarray, colors: np.ndarray | None = None) -> Mesh:
+    """A mesh from arrays; colours default to a uniform grey of 180."""
+    if colors is None:
+        colors = np.full((vertices.shape[0], 3), 180.0, np.float32)
+    return Mesh(
+        vertices=np.asarray(vertices, np.float32),
+        faces=np.asarray(faces, np.int32),
+        colors=np.asarray(colors, np.float32),
+    )
+
+
+def make_bumpy_mesh(radius: float = 0.05, subdiv: int = 3, seed: int = 0, bump: float = 0.35) -> Mesh:
+    """An asymmetric 'asteroid': an icosphere displaced radially by a
+    smooth random field and coloured by another, both drawn from one
+    RandomState(seed) (6 lobes a field: a direction randn(3), a frequency,
+    a phase, an amplitude per channel).  The float32 directions meet
+    float64 lobe directions in `v @ d` as in the JAX package, so the
+    vertices and colours equal its bit for bit."""
+    base = make_icosphere(radius, subdiv)
+    rng = np.random.RandomState(seed)
+    v = base.vertices / radius  # unit sphere directions
+
+    def smooth_field(channels: int) -> np.ndarray:
+        out = np.zeros((v.shape[0], channels), np.float32)
+        for _ in range(6):
+            d = rng.randn(3)
+            d /= np.linalg.norm(d)
+            freq = rng.uniform(1.0, 3.0)
+            phase = rng.uniform(0, 2 * np.pi)
+            amp = rng.uniform(0.3, 1.0, channels)
+            out += np.cos(freq * np.pi * (v @ d) + phase)[:, None] * amp
+        return out
+
+    disp = smooth_field(1)[:, 0]
+    disp = 1.0 + bump * (disp - disp.min()) / max(np.ptp(disp), 1e-6) - bump / 2
+    verts = (v * disp[:, None] * radius).astype(np.float32)
+    col = smooth_field(3)
+    col = (col - col.min(0)) / np.maximum(np.ptp(col, axis=0), 1e-6)
+    colors = (40.0 + 200.0 * col).astype(np.float32)
+    return Mesh(vertices=verts, faces=base.faces.copy(), colors=colors)
+
+
+def make_benchmark_classes(n: int = 13, subdiv: int = 3) -> dict:
+    """The synthetic accuracy benchmark's classes obj00..obj{n-1}: bumpy
+    meshes of radius 0.035 + 0.005 i m (diameters ~0.07-0.19 m, the span
+    of LINEMOD's objects), seed 100 + i, bump 0.25 + 0.02 i."""
+    return {f"obj{i:02d}": make_bumpy_mesh(0.035 + 0.005 * i, subdiv, seed=100 + i, bump=0.25 + 0.02 * i)
+            for i in range(n)}
+
+
 def merge_meshes(meshes: list[Mesh]) -> Mesh:
     """Concatenate meshes, part-major (face ids offset per part)."""
     verts, faces, cols = [], [], []

@@ -1,6 +1,6 @@
-"""Generate an LM6d_refine-layout dataset from meshes (the single-object
-generator of deepim_tpu/tools/synth_data.py, rendering with the port's
-rasterizer and writing PNGs with utils/png.py):
+"""Generate an LM6d_refine-layout dataset from meshes (the generators of
+deepim_tpu/tools/synth_data.py, rendering with the port's rasterizer and
+writing PNGs with utils/png.py).  The single-object layout:
 
     data/observed/<class>/<idx>-color.png / -depth.png / -label.png
     data/gt_observed/<class>/<idx>-color.png / -depth.png / -pose.txt
@@ -13,10 +13,12 @@ package's PairDB reads the result unchanged.  Initial poses perturb the gt
 pose with per-axis Euler noise N(0, 15 deg) clipped at 45 deg and
 translation noise N(0, (0.01, 0.01, 0.05)) m.  Every PNG row is Sub
 filtered, as cv2.imwrite (the JAX generator's writer) filters them, so the
-files decode as the JAX-written devkit's do.
+files decode as the JAX-written devkit's do.  generate_occlusion_dataset
+writes multi-instance scenes instead (--occlusion; its docstring has the
+layout).
 
     python -m deepim_tpu_torch.tools.synth_data --out <dir> [--n-train 64] [--n-val 16]
-        [--per-observed 1] [--device cuda|cpu]
+        [--per-observed 1] [--occlusion] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -50,6 +52,43 @@ def sample_perturbed_pose(pose: np.ndarray, rng: np.random.RandomState) -> np.nd
     return out
 
 
+def _write_models(devkit_path: str, meshes: dict) -> None:
+    """models/<class>/points.xyz and textured.obj, and models_info.txt
+    (id, diameter in mm) with ids 1..C in sorted class order."""
+    info_lines = []
+    for ci, cls in enumerate(sorted(meshes), start=1):
+        mesh = meshes[cls]
+        mdir = os.path.join(devkit_path, "models", cls)
+        os.makedirs(mdir, exist_ok=True)
+        np.savetxt(os.path.join(mdir, "points.xyz"), mesh.vertices)
+        write_obj(os.path.join(mdir, "textured.obj"), mesh)
+        info_lines.append(f"{ci} d {mesh.diameter() * 1000.0:.4f}")
+    with open(os.path.join(devkit_path, "models", "models_info.txt"), "w") as f:
+        f.write("\n".join(info_lines) + "\n")
+
+
+def _renderer(mesh, k: np.ndarray, cfg: RasterConfig, dev):
+    """pose (3, 4) -> numpy (rgb, depth) of `mesh` rendered alone on `dev`."""
+    verts, cols = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (mesh.vertices, mesh.colors))
+    faces = torch.from_numpy(np.asarray(mesh.faces, np.int32)).to(dev)
+    fvalid = torch.ones(mesh.num_faces, dtype=torch.bool, device=dev)
+    kt = torch.from_numpy(np.asarray(k, np.float32)).to(dev)
+
+    def render(pose):
+        rgb, depth = rasterize_single(verts, cols, faces, fvalid, torch.from_numpy(pose).to(dev), kt, cfg,
+                                      device=dev)
+        return rgb.cpu().numpy(), depth.cpu().numpy()
+
+    return render
+
+
+def _write_render(prefix: str, rgb: np.ndarray, depth: np.ndarray, depth_factor: float) -> None:
+    """<prefix>-color.png (RGB, truncated to uint8) and -depth.png (depth x
+    depth_factor, truncated to uint16)."""
+    write_png(prefix + "-color.png", rgb.astype(np.uint8), PNG_FILTER)
+    write_png(prefix + "-depth.png", (depth * depth_factor).astype(np.uint16), PNG_FILTER)
+
+
 def generate_dataset(devkit_path: str, meshes: dict, k: np.ndarray, n_train: int = 16,
                      n_val: int = 4, rendered_per_observed: int = 1, height: int = 480,
                      width: int = 640, seed: int = 0, depth_factor: float = 1000.0,
@@ -62,36 +101,12 @@ def generate_dataset(devkit_path: str, meshes: dict, k: np.ndarray, n_train: int
     cfg = raster_cfg or RasterConfig(height=height, width=width)
     os.makedirs(devkit_path, exist_ok=True)
     classes = sorted(meshes.keys())
-    kt = torch.from_numpy(np.asarray(k, np.float32)).to(dev)
-
-    info_lines = []
-    for ci, cls in enumerate(classes, start=1):
-        mesh = meshes[cls]
-        mdir = os.path.join(devkit_path, "models", cls)
-        os.makedirs(mdir, exist_ok=True)
-        np.savetxt(os.path.join(mdir, "points.xyz"), mesh.vertices)
-        write_obj(os.path.join(mdir, "textured.obj"), mesh)
-        info_lines.append(f"{ci} d {mesh.diameter() * 1000.0:.4f}")
-    with open(os.path.join(devkit_path, "models", "models_info.txt"), "w") as f:
-        f.write("\n".join(info_lines) + "\n")
-
+    _write_models(devkit_path, meshes)
     image_set_dir = os.path.join(devkit_path, "image_set")
     os.makedirs(image_set_dir, exist_ok=True)
 
-    def write_render(prefix: str, rgb, depth) -> None:
-        write_png(prefix + "-color.png", rgb.cpu().numpy().astype(np.uint8), PNG_FILTER)
-        write_png(prefix + "-depth.png", (depth.cpu().numpy() * depth_factor).astype(np.uint16), PNG_FILTER)
-
     for ci, cls in enumerate(classes, start=1):
-        mesh = meshes[cls]
-        verts, cols = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (mesh.vertices, mesh.colors))
-        faces = torch.from_numpy(np.asarray(mesh.faces, np.int32)).to(dev)
-        fvalid = torch.ones(mesh.num_faces, dtype=torch.bool, device=dev)
-
-        def render(pose):
-            return rasterize_single(verts, cols, faces, fvalid, torch.from_numpy(pose).to(dev), kt, cfg,
-                                    device=dev)
-
+        render = _renderer(meshes[cls], k, cfg, dev)
         obs_dir = os.path.join(devkit_path, "data", "observed", cls)
         gt_dir = os.path.join(devkit_path, "data", "gt_observed", cls)
         rend_dir = os.path.join(devkit_path, "data", "rendered", cls)
@@ -106,16 +121,15 @@ def generate_dataset(devkit_path: str, meshes: dict, k: np.ndarray, n_train: int
                          np.float32)
             pose = np.concatenate([rot, t[:, None]], axis=1)
             rgb, depth = render(pose)
-            write_render(os.path.join(obs_dir, idx), rgb, depth)
-            write_png(os.path.join(obs_dir, f"{idx}-label.png"),
-                      (depth.cpu().numpy() > 0).astype(np.uint8) * ci, PNG_FILTER)
-            write_render(os.path.join(gt_dir, idx), rgb, depth)
+            _write_render(os.path.join(obs_dir, idx), rgb, depth, depth_factor)
+            write_png(os.path.join(obs_dir, f"{idx}-label.png"), (depth > 0).astype(np.uint8) * ci, PNG_FILTER)
+            _write_render(os.path.join(gt_dir, idx), rgb, depth, depth_factor)
             save_pose_file(os.path.join(gt_dir, f"{idx}-pose.txt"), pose)
 
             for kk in range(rendered_per_observed):
                 ridx = f"{idx}_{kk}"
                 rpose = sample_perturbed_pose(pose, rng)
-                write_render(os.path.join(rend_dir, ridx), *render(rpose))
+                _write_render(os.path.join(rend_dir, ridx), *render(rpose), depth_factor)
                 save_pose_file(os.path.join(rend_dir, f"{ridx}-pose.txt"), rpose)
                 line = f"{cls}/{idx} {cls}/{ridx}"
                 (train_lines if i < n_train else val_lines).append(line)
@@ -124,6 +138,85 @@ def generate_dataset(devkit_path: str, meshes: dict, k: np.ndarray, n_train: int
             f.write("\n".join(train_lines) + "\n")
         with open(os.path.join(image_set_dir, f"val_{cls}.txt"), "w") as f:
             f.write("\n".join(val_lines) + "\n")
+
+
+def generate_occlusion_dataset(devkit_path: str, meshes: dict, k: np.ndarray, n_scenes: int = 8,
+                               n_train: int = 0, height: int = 480, width: int = 640, seed: int = 0,
+                               depth_factor: float = 1000.0, z_range: tuple[float, float] = (0.5, 0.9),
+                               lateral_spread: float = 0.04, raster_cfg: RasterConfig | None = None,
+                               device="cuda") -> None:
+    """Multi-instance occlusion scenes in the LM6d_occ-style layout.  Every
+    scene holds every class, jittered around a shared centre so that the
+    objects occlude each other.  The observed frame is the depth composite
+    of the instances rendered alone (the nearest wins a pixel, the first
+    class in sorted order on a tie) and its label image holds the class id
+    (1..C, sorted order, as PairDB numbers the model dirs) of each pixel:
+
+        data/observed/scenes/<idx>-color.png / -depth.png / -label.png
+        data/gt_observed/<class>/<idx>-color.png / -depth.png / -pose.txt
+        data/rendered/<class>/<idx>_0-color.png / -depth.png / -pose.txt
+        image_set/val_<class>.txt (the last n_scenes - n_train scenes) and,
+        with n_train, train_<class>.txt (the first n_train)
+
+    gt_observed and rendered hold each object alone at its gt and
+    perturbed pose.  A scene draws every class's gt pose first, then each
+    class's perturbed pose, so a seed gives the JAX generator's poses.  The
+    compositing runs in numpy on the host, as the JAX generator's."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    cfg = raster_cfg or RasterConfig(height=height, width=width)
+    classes = sorted(meshes.keys())
+    _write_models(devkit_path, meshes)
+    render = {cls: _renderer(meshes[cls], k, cfg, dev) for cls in classes}
+
+    obs_dir = os.path.join(devkit_path, "data", "observed", "scenes")
+    os.makedirs(obs_dir, exist_ok=True)
+    image_set_dir = os.path.join(devkit_path, "image_set")
+    os.makedirs(image_set_dir, exist_ok=True)
+    lines = {cls: [] for cls in classes}
+
+    for i in range(n_scenes):
+        idx = f"{i:06d}"
+        z0 = rng.uniform(*z_range)
+        rgb_stack, depth_stack, poses = [], [], {}
+        for cls in classes:
+            rot = R.random(random_state=rng).as_matrix().astype(np.float32)
+            t = np.array([rng.uniform(-lateral_spread, lateral_spread),
+                          rng.uniform(-lateral_spread, lateral_spread),
+                          z0 + rng.uniform(-0.05, 0.05)], np.float32)
+            poses[cls] = np.concatenate([rot, t[:, None]], axis=1)
+            rgb, depth = render[cls](poses[cls])
+            rgb_stack.append(rgb)
+            depth_stack.append(depth)
+
+        depth_all = np.stack(depth_stack)  # (C, H, W)
+        depth_inf = np.where(depth_all > 0, depth_all, np.inf)
+        winner = np.argmin(depth_inf, axis=0)
+        any_hit = np.isfinite(depth_inf.min(axis=0))
+        scene_rgb = np.take_along_axis(np.stack(rgb_stack), winner[None, :, :, None], axis=0)[0] * any_hit[:, :, None]
+        scene_depth = np.where(any_hit, np.take_along_axis(depth_all, winner[None], axis=0)[0], 0.0)
+        _write_render(os.path.join(obs_dir, idx), scene_rgb, scene_depth, depth_factor)
+        write_png(os.path.join(obs_dir, f"{idx}-label.png"), np.where(any_hit, winner + 1, 0).astype(np.uint8),
+                  PNG_FILTER)
+
+        for ci, cls in enumerate(classes):
+            gt_dir = os.path.join(devkit_path, "data", "gt_observed", cls)
+            rend_dir = os.path.join(devkit_path, "data", "rendered", cls)
+            os.makedirs(gt_dir, exist_ok=True)
+            os.makedirs(rend_dir, exist_ok=True)
+            _write_render(os.path.join(gt_dir, idx), rgb_stack[ci], depth_stack[ci], depth_factor)
+            save_pose_file(os.path.join(gt_dir, f"{idx}-pose.txt"), poses[cls])
+            rpose = sample_perturbed_pose(poses[cls], rng)
+            _write_render(os.path.join(rend_dir, f"{idx}_0"), *render[cls](rpose), depth_factor)
+            save_pose_file(os.path.join(rend_dir, f"{idx}_0-pose.txt"), rpose)
+            lines[cls].append(f"scenes/{idx} {cls}/{idx}_0")
+
+    for cls in classes:
+        with open(os.path.join(image_set_dir, f"val_{cls}.txt"), "w") as f:
+            f.write("\n".join(lines[cls][n_train:]) + "\n")
+        if n_train:
+            with open(os.path.join(image_set_dir, f"train_{cls}.txt"), "w") as f:
+                f.write("\n".join(lines[cls][:n_train]) + "\n")
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -137,10 +230,17 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--n-train", type=int, default=64)
     ap.add_argument("--n-val", type=int, default=16)
     ap.add_argument("--per-observed", type=int, default=1)
+    ap.add_argument("--occlusion", action="store_true",
+                    help="multi-instance occlusion scenes (LM6d_occ-style) instead of the single-object layout")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     meshes = {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 3)}
-    generate_dataset(args.out, meshes, LINEMOD_K, args.n_train, args.n_val, args.per_observed, device=args.device)
+    if args.occlusion:
+        generate_occlusion_dataset(args.out, meshes, LINEMOD_K, n_scenes=args.n_val + args.n_train,
+                                   n_train=args.n_train, device=args.device)
+    else:
+        generate_dataset(args.out, meshes, LINEMOD_K, args.n_train, args.n_val, args.per_observed,
+                         device=args.device)
     print("wrote dataset to", args.out)
 
 

@@ -3,6 +3,7 @@ CPU: render/lighting.py, per-fragment texture sampling
 (rasterizer.texture_gather, rasterize_textured), the texture-keeping mesh
 loader and bank, load_ply and render/standalone.py.  The same numpy inputs
 go through both packages.  Tolerances are stated in each test."""
+import dataclasses
 import struct
 import sys
 from pathlib import Path
@@ -311,3 +312,32 @@ def test_standalone_render_csr_non_multiple_size():
         got, want = _standalone_both(mesh, (100, 90), k, pose, shading=shading, texture=tex, clip_near=0.05)
         assert got[0].shape == (90, 100, 3)
         _assert_standalone(got, want, "rgb+depth")
+
+
+def test_standalone_render_close_object_every_tile(record_property):
+    """A 320-face icosphere filling most of a 192x160 frame (the dense
+    path; 240 tiles of 8x16, more than 128 of them covered).  The port's
+    render rasterizes every tile (raster_config: active_tiles 0) and
+    equals JAX's rasterize_single run with the port's raster_config, by
+    the standalone rule (rgb within 1 level, depth 1e-5, equal hit
+    masks).  JAX's own render keeps its RasterConfig's 128 active tiles
+    and leaves the rest of the object unrendered: its hit mask is smaller
+    (the count it misses is recorded)."""
+    mesh = t_mesh.make_icosphere(0.05, 2)
+    im_size, k = (192, 160), np.array([[250.0, 0.0, 96.0], [0.0, 250.0, 80.0], [0.0, 0.0, 1.0]], np.float32)
+    pose = _poses(np.random.RandomState(8), 1, z=0.16)[0]
+    cfg = t_standalone.raster_config(mesh, im_size, k, pose, 0.05, 10.0)
+    assert (cfg.tile_h, cfg.tile_w, cfg.active_tiles) == (8, 16, 0) and not t_raster.uses_csr(cfg, mesh.num_faces)
+    got = t_standalone.render(mesh, im_size, k, pose[:, :3], pose[:, 3], clip_near=0.05, device="cpu")
+    covered = np.unique(np.argwhere(got[1] > 0) // (cfg.tile_h, cfg.tile_w), axis=0)
+    assert len(covered) > 128
+    fields = {f.name for f in dataclasses.fields(j_raster.RasterConfig)}
+    jcfg = j_raster.RasterConfig(**{key: v for key, v in dataclasses.asdict(cfg).items() if key in fields})
+    rgb, depth = j_raster.rasterize_single(jnp.asarray(mesh.vertices), jnp.asarray(mesh.colors),
+                                           jnp.asarray(mesh.faces), jnp.ones(mesh.num_faces, bool),
+                                           jnp.asarray(pose), jnp.asarray(k), jcfg)
+    _assert_standalone(got, (np.clip(np.asarray(rgb), 0, 255).astype(np.uint8), np.asarray(depth)), "rgb+depth")
+    own = j_standalone.render(_j_mesh(mesh), im_size, k, pose[:, :3], pose[:, 3], clip_near=0.05)
+    missed = int((got[1] > 0).sum() - (own[1] > 0).sum())
+    record_property("jax_render_pixels_missed", missed)
+    assert missed > 0 and not ((own[1] > 0) & ~(got[1] > 0)).any()

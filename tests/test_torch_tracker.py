@@ -492,3 +492,55 @@ def test_track_video_cli_needs_cuda(devkit, tmp_path):
     env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "2"}
     res = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=str(tmp_path), timeout=300)
     assert res.returncode != 0 and "torch.cuda.is_available() is False" in res.stderr
+
+
+def test_track_video_main_config_class_order(devkit, tmp_path, record_property):
+    """A config that lists the devkit's classes in another order
+    (["sphere", "cube"]; the devkit's are sorted: cube, sphere).  The
+    port's CLI tracks the named class with that class's mesh, its index in
+    the config's list (the bank's order): the same poses as on the
+    devkit-order config from the same checkpoint, and the sphere's mesh.
+    The JAX CLI indexes db.classes, the devkit's order: for "sphere" that
+    is index 1, the cube's mesh in this config's bank (recorded)."""
+    from deepim_tpu.config import Config as JConfig
+    from deepim_tpu.config import update_config_dict as j_update
+    from deepim_tpu_torch.config import load_config
+    from deepim_tpu_torch.render.mesh import load_textured_mesh
+    from deepim_tpu_torch.tools.train_net import build_model
+    from test_torch_eval import _cfg_dict
+
+    files = {}
+    for order in (["cube", "sphere"], ["sphere", "cube"]):
+        d = _cfg_dict(devkit)
+        d["dataset"]["class_name"] = order
+        d["output_path"] = str(tmp_path / "out")
+        files[order[0]] = tmp_path / f"cfg_{order[0]}.yaml"
+        _write_yaml(files[order[0]], d)
+    cfg = load_config(str(files["cube"]))
+    model = build_model(cfg, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        model.trans.weight.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(3))
+    prefix = str(tmp_path / "ckpt" / PREFIX)
+    save_checkpoint(prefix, TEST_EPOCH, TrainState(model, None))
+    res = {first: t_track_video.main(["--cfg", str(path), "--cls", "sphere", "--ckpt-prefix", prefix,
+                                      "--device", "cpu"])
+           for first, path in files.items()}
+    np.testing.assert_array_equal(res["sphere"]["poses"], res["cube"]["poses"])
+    assert np.isfinite(res["sphere"]["poses"]).all() and res["sphere"]["run"]["raster_dropped"] == 0
+
+    swapped = load_config(str(files["sphere"]))
+    db, _ = load_gt_pairdb(swapped, "LM6D_REFINE", "val_sphere", "sphere", devkit, devkit)
+    bank = build_mesh_bank(swapped)
+    meshes = t_track_video._class_meshes(swapped, db, bank, torch.device("cpu"))
+    sphere = load_textured_mesh(os.path.join(devkit, "models", "sphere"))
+    assert int(meshes.face_valid.sum()) == sphere.num_faces
+    np.testing.assert_array_equal(meshes.vertices[0, : sphere.num_vertices].numpy(), sphere.vertices)
+
+    j_cfg = j_update(JConfig(), {**_cfg_dict(devkit), "dataset": {**_cfg_dict(devkit)["dataset"],
+                                                                 "class_name": ["sphere", "cube"]}})
+    j_db, _ = j_load_gt_pairdb(j_cfg, "LM6D_REFINE", "val_sphere", "sphere", devkit, devkit)
+    j_index = list(j_db.classes).index("sphere")
+    j_faces = int(np.asarray(j_build_mesh_bank(j_cfg)[3][j_index]).sum())
+    record_property("jax_bank_index", j_index)
+    record_property("jax_mesh_faces", j_faces)
+    assert (j_index, j_faces) == (1, make_test_cube(0.08).num_faces)
