@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 12   # phase 1 (device, build) and phase 12 alone, e.g. on four cards
     python3 chip_smoke.py --phases 13   # phase 1 and phase 13 alone
     python3 chip_smoke.py --phases 14   # phase 1 and phase 14 (the benchmark runners) alone
+    python3 chip_smoke.py --phases 15   # phase 1 and phase 15 (the data-preparation toolkit) alone
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device and build: the card's name and power limit, torch's CUDA
@@ -209,6 +210,37 @@ Phases (each raises on failure; the script then exits non-zero):
      2's mean loss below epoch 1's.  It prints the generation seconds a
      pair, samples/s per epoch, eval frames/s and both tables beside their
      init rows.
+ 15. the data-preparation toolkit (deepim_tpu_torch/toolkit/), under
+     deepim_tpu_torch/_build/phase15/: a BOP-format source at 480x640 with
+     LINEMOD intrinsics, rendered by the port (classes "cube", 0.08 m, 12
+     faces: tile_raster, and "sphere", the 20,480-face icosphere of radius
+     0.05 m as a millimetre PLY: csr_raster; 32 frames a class at 0.5-1.2
+     m, masks, scene_gt.json, scene_gt_info.json); (A) every CLI through its
+     main(argv) with --device cuda: adapt_devkit rescale-models,
+     calc-extents and adapt-images, a 24/8 train/test split,
+     gen_gt_observed, gen_rendered_pose (10 a frame), gen_rendered,
+     gen_posecnn_rendered (each test frame's gt perturbed as
+     sample_rendered_pose perturbs, one frame a class without a detection;
+     the cube's as text, the sphere's as per-frame .mat files), syn_poses
+     gen-poses (32 a class), gen-observed, gen_rendered_pose and
+     gen_rendered on the syn root (1 a frame), check with --vis-dir, and
+     stats on train_<cls>; each stage's launches exact (ceil(n / 8) a
+     render_many call, twice that in gen-observed) and nothing else, and
+     each kernel's unlit and lit launches within BatchRenderer, counted
+     apart, equal to the plan;
+     exactly the files the JAX pipeline writes, each -meta.mat pose within
+     1e-5 of its source, gen_rendered_pose's files byte-equal to a CPU
+     run's, check clean, no dropped pair over every sphere pose; (C) each
+     kernel against its twin, bit for bit, at its class's first unlit and
+     lit toolkit batch; (B) the pipeline through the functions at 64x64
+     (K64, a 5,120-face icosphere) on the card and on the CPU: every file
+     equal (PNGs after decoding: depth and labels exact, rgb within 1
+     level), launches exact; (D) test_deepim with the recipe file on the
+     PoseCNN_val_ sets the toolkit wrote (seeded checkpoint, batch 16, 4
+     iterations, bf16): csr_raster launched exactly, every table finite.
+     It prints each stage's seconds a frame split into render (rasterize up
+     to a device synchronize), readback, PNG encode and file writes, the
+     PNG bytes a frame, test_deepim's frames/s and the phase's seconds.
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -258,6 +290,7 @@ from deepim_tpu_torch.render.mesh import make_uv_sphere, smooth_texture, write_o
 from deepim_tpu_torch.render.rasterizer import KERNELS, RasterConfig, kernel_inputs, rasterize  # noqa: E402
 from deepim_tpu_torch.render.rasterizer import texture_gather  # noqa: E402
 from deepim_tpu_torch.render.stress import stress_tile_list, stress_work_list  # noqa: E402
+from deepim_tpu_torch.toolkit._common import DEFAULT_K as TK_K  # noqa: E402
 from deepim_tpu_torch.tools.synth_data import generate_dataset  # noqa: E402
 from deepim_tpu_torch.tools import test_net as test_net_mod  # noqa: E402
 from deepim_tpu_torch.tools import train_net as train_net_mod  # noqa: E402
@@ -2772,7 +2805,577 @@ def drive_phase14(dev, card: str) -> dict:
     return {"tile_raster": {"bench_train": train_check, "occ_eval": eval_check}}
 
 
-ALL_PHASES = set(range(1, 15))
+# Phase 15: the data-preparation toolkit (deepim_tpu_torch/toolkit/) through
+# each module's main(argv), on a BOP-format source written here.
+PHASE15_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase15")
+TK_CLASSES = ("cube", "sphere")  # toolkit ids 1 and 2 (outside the LINEMOD table), PairDB's sorted order
+TK_FRAMES = 32        # BOP frames a class (LINEMOD's test split has ~1,200)
+TK_TRAIN = 24         # of them in <cls>_train.txt, the rest in <cls>_test.txt
+TK_PER_OBSERVED = 10  # gen_rendered_pose's default
+TK_SYN = 32           # syn poses a class (the reference samples 10,000)
+TK_SYN_PER_OBSERVED = 1
+TK_BATCH = 8          # every toolkit CLI's --batch default
+TK_NO_DETECTION = 3   # the test frame of each class given to gen_posecnn_rendered as "no detection"
+TK_SMALL = 64         # 15B's frame: K64, 6 frames a class, a 5,120-face icosphere (still csr_raster)
+TK_SMALL_FRAMES, TK_SMALL_TRAIN, TK_SMALL_SYN = 6, 4, 8
+TK_SEED = 15
+
+
+def write_ply_mm(path: str, mesh) -> None:
+    """An ascii PLY in millimetres with vertex colours (the BOP model format)."""
+    with open(path, "w") as f:
+        f.write(f"ply\nformat ascii 1.0\nelement vertex {mesh.num_vertices}\n"
+                "property float x\nproperty float y\nproperty float z\n"
+                "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+                f"element face {mesh.num_faces}\nproperty list uchar int vertex_indices\nend_header\n")
+        for v, c in zip(mesh.vertices * 1000.0, mesh.colors):
+            f.write(f"{v[0]} {v[1]} {v[2]} {int(c[0])} {int(c[1])} {int(c[2])}\n")
+        for tri in mesh.faces:
+            f.write(f"3 {tri[0]} {tri[1]} {tri[2]}\n")
+
+
+def write_bop_source(src: str, meshes: dict, frames: int, k: np.ndarray, hw: tuple, dev) -> dict:
+    """A BOP-format source under `src`: models/obj_<id>.ply (millimetres)
+    and test/<id>/ with rgb, depth (mm) and mask PNGs, scene_gt.json and
+    scene_gt_info.json, one instance a frame at a seeded pose at LINEMOD
+    depths (0.5-1.2 m), rendered by the port from the PLY it wrote (the
+    toolkit's RasterConfig; batches of TK_BATCH).  Returns each class's
+    poses."""
+    from scipy.spatial.transform import Rotation
+
+    from deepim_tpu_torch.render.mesh import load_ply
+
+    cfg = RasterConfig(height=hw[0], width=hw[1])
+    rng = np.random.RandomState(TK_SEED)
+    poses_by_cls = {}
+    os.makedirs(os.path.join(src, "models"), exist_ok=True)
+    for obj, cls in enumerate(TK_CLASSES, start=1):
+        ply = os.path.join(src, "models", f"obj_{obj:06d}.ply")
+        write_ply_mm(ply, meshes[cls])
+        mesh = load_ply(ply, scale=0.001)
+        scene = os.path.join(src, "test", f"{obj:06d}")
+        for sub in ("rgb", "depth", "mask"):
+            os.makedirs(os.path.join(scene, sub), exist_ok=True)
+        poses = np.zeros((frames, 3, 4), np.float32)
+        for i in range(frames):
+            z = rng.uniform(0.5, 1.2)
+            poses[i, :, :3] = Rotation.random(random_state=rng).as_matrix()
+            poses[i, :, 3] = (rng.uniform(-0.06, 0.06) * z, rng.uniform(-0.05, 0.05) * z, z)
+        verts, cols = (torch.from_numpy(np.repeat(a[None], TK_BATCH, 0)).to(dev) for a in (mesh.vertices, mesh.colors))
+        faces = torch.from_numpy(np.repeat(mesh.faces[None], TK_BATCH, 0)).to(dev)
+        fvalid = torch.ones(faces.shape[:2], dtype=torch.bool, device=dev)
+        gt, info = {}, {}
+        for start in range(0, frames, TK_BATCH):
+            chunk = poses[start:start + TK_BATCH]
+            rgb, depth = rasterize(verts[:len(chunk)], cols[:len(chunk)], faces[:len(chunk)], fvalid[:len(chunk)],
+                                   torch.from_numpy(chunk), torch.from_numpy(k), cfg, device=dev)
+            rgb, depth = rgb.cpu().numpy(), depth.cpu().numpy()
+            for j, pose in enumerate(chunk):
+                i = start + j
+                mask = depth[j] > 0
+                ys, xs = np.nonzero(mask)
+                write_png(os.path.join(scene, "rgb", f"{i:06d}.png"), np.clip(rgb[j], 0, 255).astype(np.uint8), 1)
+                write_png(os.path.join(scene, "depth", f"{i:06d}.png"), (depth[j] * 1000.0).astype(np.uint16), 1)
+                write_png(os.path.join(scene, "mask", f"{i:06d}_000000.png"), mask.astype(np.uint8) * 255, 1)
+                gt[str(i)] = [{"obj_id": obj, "cam_R_m2c": pose[:, :3].flatten().tolist(),
+                               "cam_t_m2c": (pose[:, 3] * 1000.0).tolist()}]
+                info[str(i)] = [{"bbox_visib": [int(xs.min()), int(ys.min()), int(np.ptp(xs)) + 1,
+                                                int(np.ptp(ys)) + 1]}]
+        for name, d in (("scene_gt.json", gt), ("scene_gt_info.json", info)):
+            with open(os.path.join(scene, name), "w") as f:
+                json.dump(d, f)
+        poses_by_cls[cls] = poses
+    return poses_by_cls
+
+
+def write_splits(root: str, train: int) -> None:
+    """<cls>_train.txt (the first `train` frames of <cls>_all.txt, which
+    adapt-images wrote) and <cls>_test.txt (the rest)."""
+    obs = os.path.join(root, "image_set", "observed")
+    for cls in TK_CLASSES:
+        with open(os.path.join(obs, f"{cls}_all.txt")) as f:
+            indices = [x.strip() for x in f if x.strip()]
+        for name, sel in (("train", indices[:train]), ("test", indices[train:])):
+            with open(os.path.join(obs, f"{cls}_{name}.txt"), "w") as f:
+                f.write("\n".join(sel) + "\n")
+
+
+def write_predictions(root: str, pred_dir: str, k: np.ndarray, hw: tuple) -> int:
+    """PoseCNN predictions for each class's test frames: the gt pose
+    (gen_gt_observed's pose file) perturbed as sample_rendered_pose
+    perturbs, test frame TK_NO_DETECTION of each class without a detection;
+    the cube's as a text file, the sphere's in the reference's per-frame
+    .mat layout.  Returns the detections written."""
+    import scipy.io as sio
+
+    from deepim_tpu_torch.data.pairdb import load_pose_file
+    from deepim_tpu_torch.toolkit.gen_rendered_pose import pose_to_line, sample_rendered_pose
+
+    rng = np.random.RandomState(TK_SEED)
+    os.makedirs(os.path.join(pred_dir, "sphere"), exist_ok=True)
+    detections = 0
+    for cls in TK_CLASSES:
+        with open(os.path.join(root, "image_set", "observed", f"{cls}_test.txt")) as f:
+            test = [x.strip() for x in f if x.strip()]
+        lines, icp_lines = [], []
+        for i, idx in enumerate(test):
+            gt = load_pose_file(os.path.join(root, "data", "gt_observed", cls, idx.split("/")[-1] + "-pose.txt"))
+            pose, icp = (sample_rendered_pose(gt, rng, k, hw[1], hw[0])[0] for _ in range(2))
+            found = i != TK_NO_DETECTION
+            detections += found
+            lines.append(pose_to_line(pose) if found else " ".join(["-1"] * 7))
+            icp_lines.append(pose_to_line(icp) if found else " ".join(["-1"] * 7))
+            if cls == "sphere":
+                vec = [np.array([float(x) for x in line.split()]) for line in (lines[-1], icp_lines[-1])]
+                sio.savemat(os.path.join(pred_dir, "sphere", f"{i:04d}.mat"),
+                            {"rois": np.array([[0.0, 1.0 if found else -1.0, 0, 0, 0, 0, 0]]),
+                             "poses": vec[0][None], "poses_icp": vec[1][None]})
+        if cls == "cube":
+            for name, ls in (("cube_poses.txt", lines), ("cube_poses_icp.txt", icp_lines)):
+                with open(os.path.join(pred_dir, name), "w") as f:
+                    f.write("\n".join(ls) + "\n")
+    return detections
+
+
+class StageClock:
+    """Host seconds of the toolkit's render path split by what it waits on,
+    from wrappers installed while a stage runs: rasterize up to a device
+    synchronize (render), the rest of BatchRenderer._render_batch (the
+    readback), encode_png (PNG encode) and the rest of write_png (file
+    writes); the PNG bytes written; each kernel's launches within
+    _render_batch, lit and unlit apart, from the wrappers' counts; and the
+    first unlit and the first lit rasterize call of each mesh
+    (kernel_inputs for check_kernel)."""
+
+    def __init__(self):
+        self.totals = dict.fromkeys(("render", "batch", "encode", "png", "png_bytes"), 0.0)
+        self.calls = {}
+        self.launches = {}
+
+    @contextlib.contextmanager
+    def installed(self):
+        from deepim_tpu_torch.toolkit import _common
+        from deepim_tpu_torch.utils import png
+
+        real_rasterize, real_batch = _common.rasterize, _common.BatchRenderer._render_batch
+        real_encode, real_write = png.encode_png, _common.write_png
+        tot = self.totals
+
+        def timed(key, fn):
+            def wrapped(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                if key == "render":
+                    torch.cuda.synchronize()
+                elif key == "encode":
+                    tot["png_bytes"] += len(out)
+                tot[key] += time.perf_counter() - t0
+                return out
+            return wrapped
+
+        def render_batch(renderer, poses, corner_colors):
+            lit = corner_colors is not renderer._corner_cols
+            self.calls.setdefault((renderer._faces.shape[1], lit), (renderer, poses, corner_colors))
+            before = launch_counts()
+            out = timed_batch(renderer, poses, corner_colors)
+            for name, n in launch_counts().items():
+                if n != before[name]:
+                    self.launches[name, lit] = self.launches.get((name, lit), 0) + n - before[name]
+            return out
+
+        timed_batch = timed("batch", real_batch)
+        _common.rasterize = timed("render", real_rasterize)
+        _common.BatchRenderer._render_batch = render_batch
+        png.encode_png = timed("encode", real_encode)
+        _common.write_png = timed("png", real_write)
+        try:
+            yield self
+        finally:
+            _common.rasterize, _common.BatchRenderer._render_batch = real_rasterize, real_batch
+            png.encode_png, _common.write_png = real_encode, real_write
+
+
+def tk_expected_launches(frames: int, train: int, per_observed: int, syn: int, syn_per_observed: int) -> dict:
+    """Each rendering stage's launches of its class's kernel, from the code:
+    ceil(n / TK_BATCH) a render_many call (the source: one rasterize call a
+    batch of TK_BATCH), twice that in gen-observed (lit and unlit)."""
+    def calls(n):
+        return -(-n // TK_BATCH)
+
+    test = frames - train
+    return {"source": calls(frames), "gen_gt_observed": calls(frames), "gen_rendered": calls(frames * per_observed),
+            "gen_posecnn_rendered": calls(test - (test > TK_NO_DETECTION)), "syn gen-observed": 2 * calls(syn),
+            "syn gen_rendered": calls(syn * syn_per_observed)}
+
+
+def run_toolkit_stage(label: str, fn, expect: int, frames: int, clock: StageClock, card: str) -> dict:
+    """One stage with the launch counters zeroed just before and read just
+    after: its class kernels `expect` times each (csr_raster for the
+    sphere, tile_raster for the cube) and nothing else.  Returns the
+    stage's wall and clock seconds."""
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    before = dict(clock.totals)
+    t0 = time.perf_counter()
+    with clock.installed():
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": expect}
+    if counts != want:
+        raise AssertionError(f"toolkit {label}: launches {counts}, want {want}")
+    d = {key: clock.totals[key] - before[key] for key in clock.totals}
+    stage = {"wall": wall, "frames": frames, "launches": expect, "render": d["render"],
+             "readback": d["batch"] - d["render"], "encode": d["encode"], "write": d["png"] - d["encode"],
+             "png_bytes": d["png_bytes"], "out": out}
+    stage["other"] = wall - d["batch"] - d["png"]
+    per = f"; per frame ({frames}): " + ", ".join(
+        f"{key} {stage[key] / frames * 1e3:.3f} ms" for key in ("render", "readback", "encode", "write", "other")
+    ) + f", {stage['png_bytes'] / frames / 1e3:.1f} kB of PNG" if frames else ""
+    log(f"[toolkit {label}] {wall:.3f} s; launches {counts}{per} [{card}]")
+    return stage
+
+
+def tk_files(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(r, f), root) for r, _, fs in os.walk(root) for f in fs
+                  if "cache" not in os.path.relpath(r, root).split(os.sep))
+
+
+def expected_toolkit_files(frames: int, train: int, per_observed: int, syn: int, syn_per_observed: int,
+                           vis: int = 4) -> list:
+    """Every file the JAX toolkit writes for this pipeline under the devkit
+    root (dk/), the syn root (syn/) and check's --vis-dir (vis/)."""
+    out = []
+    for ci, cls in enumerate(TK_CLASSES, start=1):
+        out += [f"dk/models/{cls}/points.xyz", f"dk/models/{cls}/textured.obj"]
+        out += [f"dk/image_set/observed/{cls}_{s}.txt" for s in ("all", "train", "test")]
+        test = [f"{i + 1:06d}" for i in range(train, frames)]
+        for i in range(1, frames + 1):
+            p = f"{i:06d}"
+            out += [f"dk/data/observed/{ci:02d}/{p}-{s}" for s in ("color.png", "depth.png", "label.png", "meta.mat")]
+            out += [f"dk/data/gt_observed/{cls}/{p}-{s}" for s in ("pose.txt", "depth.png", "label.png", "color.png")]
+            out += [f"dk/data/rendered/{cls}/{p}_{j}-{s}" for j in range(per_observed)
+                    for s in ("pose.txt", "color.png", "depth.png")]
+        for j, p in enumerate(test):
+            if j != TK_NO_DETECTION:
+                out += [f"dk/data/rendered_val_PoseCNN/{cls}/{p}_0-{s}"
+                        for s in ("pose.txt", "pose_icp.txt", "color.png", "depth.png", "label.png")]
+        out += [f"dk/rendered_poses/LM6d_all_rendered_pose_{cls}.txt", f"syn/rendered_poses/LM6d_all_rendered_pose_{cls}.txt"]
+        out += [f"dk/image_set/{s}_{cls}.txt" for s in ("train", "my_val", "PoseCNN_val")]
+        out += [f"syn/image_set/{s}_{cls}.txt" for s in ("train", "my_val")]
+        out += [f"syn/image_set/observed/{cls}_all.txt", f"syn/image_set/observed/LM6d_data_syn_train_observed_{cls}.txt"]
+        for i in range(1, syn + 1):
+            p = f"{i:06d}"
+            out += [f"syn/data/observed/{cls}/{p}-{s}" for s in ("color.png", "depth.png", "label.png", "pose.txt")]
+            out += [f"syn/data/gt_observed/{cls}/{p}-{s}" for s in ("color.png", "depth.png", "pose.txt")]
+            out += [f"syn/data/rendered/{cls}/{p}_{j}-{s}" for j in range(syn_per_observed)
+                    for s in ("pose.txt", "color.png", "depth.png")]
+        out += [f"vis/{cls}_{i:06d}_check.png" for i in range(1, min(vis, syn * syn_per_observed) + 1)]
+    out += ["dk/models/models_info.txt", "dk/models/extents.txt", "syn/poses/LM6d_ds_train_observed_pose_all.pkl"]
+    return sorted(out)
+
+
+def toolkit_mains(src: str, base: str, frames: int, train: int, per_observed: int, syn: int,
+                  syn_per_observed: int, clock: StageClock, dev, card: str) -> dict:
+    """15A: the toolkit's CLIs in order, each through its main(argv) with
+    --device `dev`, on the BOP source `src` into <base>/dk, <base>/syn and
+    <base>/vis.  Returns each stage's figures."""
+    from deepim_tpu_torch.toolkit import adapt_devkit, gen_gt_observed, gen_posecnn_rendered, gen_rendered
+    from deepim_tpu_torch.toolkit import gen_rendered_pose, stats, syn_poses
+
+    dk, syn_root, preds = (os.path.join(base, d) for d in ("dk", "syn", "preds"))
+    cls_args = ["--classes", *TK_CLASSES, "--device", str(dev)]
+    expect = tk_expected_launches(frames, train, per_observed, syn, syn_per_observed)
+    test = frames - train
+    stages = {}
+
+    def stage(label, fn, n_frames=0):
+        stages[label] = run_toolkit_stage(label, fn, expect.get(label, 0), n_frames, clock, card)
+        return stages[label]["out"]
+
+    stage("rescale-models", lambda: adapt_devkit.main(["rescale-models", "--origin-models", os.path.join(src, "models"),
+                                                       "--out-models", os.path.join(dk, "models"), *cls_args]))
+    stage("calc-extents", lambda: adapt_devkit.main(["calc-extents", "--models-dir", os.path.join(dk, "models"),
+                                                     *cls_args]))
+    stage("adapt-images", lambda: adapt_devkit.main(["adapt-images", "--origin-root", os.path.join(src, "test"),
+                                                     "--out-root", dk, *cls_args]), 2 * frames)
+    write_splits(dk, train)
+    stage("gen_gt_observed", lambda: gen_gt_observed.main(["--root", dk, *cls_args]), 2 * frames)
+    stage("gen_rendered_pose", lambda: gen_rendered_pose.main(["--root", dk, "--per-observed", str(per_observed),
+                                                               *cls_args]))
+    stage("gen_rendered", lambda: gen_rendered.main(["--root", dk, "--per-observed", str(per_observed), *cls_args]),
+          2 * frames * per_observed)
+    detections = write_predictions(dk, preds, TK_K, (H, W))
+    stage("gen_posecnn_rendered", lambda: gen_posecnn_rendered.main(["--root", dk, "--pred-dir", preds, *cls_args]),
+          detections)
+    stage("syn gen-poses", lambda: syn_poses.main(["gen-poses", "--real-root", dk, "--syn-root", syn_root,
+                                                   "--num-images", str(syn), *cls_args]))
+    os.symlink(os.path.join(dk, "models"), os.path.join(syn_root, "models"))
+    stage("syn gen-observed", lambda: syn_poses.main(["gen-observed", "--syn-root", syn_root, *cls_args]), 4 * syn)
+    stage("syn gen_rendered_pose", lambda: gen_rendered_pose.main(
+        ["--root", syn_root, "--per-observed", str(syn_per_observed), *cls_args]))
+    stage("syn gen_rendered", lambda: gen_rendered.main(
+        ["--root", syn_root, "--per-observed", str(syn_per_observed), *cls_args]), 2 * syn * syn_per_observed)
+    report = stage("syn check", lambda: syn_poses.main(["check", "--syn-root", syn_root, "--vis-dir",
+                                                        os.path.join(base, "vis"), *cls_args]))
+    if report["missing"] or report["label_mismatch"] or report["pairs"] != 2 * syn * syn_per_observed:
+        raise AssertionError(f"toolkit syn check: {report}")
+    stages["stats"] = {cls: run_toolkit_stage(f"stats train_{cls}", lambda c=cls: stats.main(
+        ["--root", dk, "--image-set", f"train_{c}", "--cls", c, "--device", str(dev)]), 0, 0, clock, card)["out"]
+        for cls in TK_CLASSES}
+    for cls, out in stages["stats"].items():
+        if not (np.isfinite(out["se3"][0]).all() and np.isfinite(out["se3"][1]).all() and out["se3"][0][0] > 0.8):
+            raise AssertionError(f"toolkit stats {cls}: {out}")
+        log(f"[toolkit stats train_{cls}] stat_se3 mean {[round(float(x), 5) for x in out['se3'][0]]}, std "
+            f"{[round(float(x), 5) for x in out['se3'][1]]}; depth max/min {out['depth']} [{card}]")
+    return stages
+
+
+def check_toolkit_layout(base: str, src_poses: dict, frames: int, train: int, per_observed: int, syn: int,
+                         syn_per_observed: int, card: str) -> None:
+    """Exactly the files the JAX pipeline writes (the PairDB caches aside),
+    each -meta.mat pose within 1e-5 of its source, and gen_rendered_pose's
+    file byte-equal to a CPU run's with the same seed."""
+    import scipy.io as sio
+
+    from deepim_tpu_torch.toolkit import gen_rendered_pose
+
+    got = [p for p in tk_files(base) if not p.startswith("preds/")]
+    want = expected_toolkit_files(frames, train, per_observed, syn, syn_per_observed)
+    if got != want:
+        raise AssertionError(f"toolkit layout: missing {sorted(set(want) - set(got))[:8]}, "
+                             f"extra {sorted(set(got) - set(want))[:8]}")
+    err = 0.0
+    for ci, cls in enumerate(TK_CLASSES, start=1):
+        for i, pose in enumerate(src_poses[cls]):
+            meta = sio.loadmat(os.path.join(base, "dk", "data", "observed", f"{ci:02d}", f"{i + 1:06d}-meta.mat"))
+            err = max(err, float(np.abs(meta["poses"][:, :, 0] - pose).max()))
+            if meta["cls_indexes"].tolist() != [[ci]]:
+                raise AssertionError(f"toolkit meta {cls} {i}: cls_indexes {meta['cls_indexes']}")
+    if err > 1e-5:
+        raise AssertionError(f"toolkit -meta.mat poses {err} from their source")
+    cpu = os.path.join(PHASE15_DIR, "pose_cpu")
+    shutil.copytree(os.path.join(base, "dk", "image_set"), os.path.join(cpu, "image_set"))
+    shutil.copytree(os.path.join(base, "dk", "data", "observed"), os.path.join(cpu, "data", "observed"),
+                    ignore=shutil.ignore_patterns("*.png"))
+    gen_rendered_pose.main(["--root", cpu, "--per-observed", str(per_observed), "--classes", *TK_CLASSES,
+                            "--device", "cpu"])
+    for cls in TK_CLASSES:
+        name = f"LM6d_all_rendered_pose_{cls}.txt"
+        with open(os.path.join(base, "dk", "rendered_poses", name), "rb") as a, \
+                open(os.path.join(cpu, "rendered_poses", name), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"toolkit gen_rendered_pose: {name} differs from the CPU run's")
+    log(f"[toolkit layout] {len(got)} files, exactly the JAX pipeline's; -meta.mat poses within {err:.3g} of the "
+        f"source; gen_rendered_pose's files byte-equal to a CPU run's [{card}]")
+
+
+def sphere_dropped_pairs(base: str, dev) -> tuple:
+    """csr_dropped_pairs summed over every pose the toolkit rendered the
+    sphere at (its pose files), with the toolkit's RasterConfig, and the
+    number of poses."""
+    from deepim_tpu_torch.data.pairdb import load_pose_file
+    from deepim_tpu_torch.render.mesh import load_textured_mesh
+    from deepim_tpu_torch.render.rasterizer import csr_dropped_pairs
+
+    paths = [os.path.join(r, f) for sub in ("dk", "syn") for r, _, fs in os.walk(os.path.join(base, sub, "data"))
+             for f in fs if f.endswith("-pose.txt") and os.sep + "sphere" + os.sep in os.path.join(r, "")]
+    poses = np.stack([load_pose_file(p) for p in sorted(paths)])
+    mesh = load_textured_mesh(os.path.join(base, "dk", "models", "sphere"))
+    verts, faces = (torch.from_numpy(np.repeat(a[None], TK_BATCH, 0)) for a in (mesh.vertices, mesh.faces))
+    fvalid = torch.ones(faces.shape[:2], dtype=torch.bool)
+    dropped = 0
+    for start in range(0, len(poses), TK_BATCH):
+        chunk = torch.from_numpy(poses[start:start + TK_BATCH])
+        n = chunk.shape[0]
+        dropped += int(csr_dropped_pairs(verts[:n], faces[:n], fvalid[:n], chunk, torch.from_numpy(TK_K),
+                                         RasterConfig(height=H, width=W), device=dev))
+    return dropped, len(poses)
+
+
+def toolkit_small(src: str, root: str, dev) -> dict:
+    """15B: the same pipeline through the toolkit's functions at
+    TK_SMALL x TK_SMALL with K64 on `dev`, into `root`."""
+    from deepim_tpu_torch.data.pairdb import PairDB
+    from deepim_tpu_torch.toolkit import adapt_devkit, gen_gt_observed, gen_posecnn_rendered, gen_rendered
+    from deepim_tpu_torch.toolkit import gen_rendered_pose, stats, syn_poses
+
+    kw = dict(k=K64, width=TK_SMALL, height=TK_SMALL)
+    dk, syn_root, preds = (os.path.join(root, d) for d in ("dk", "syn", "preds"))
+    classes = list(TK_CLASSES)
+    adapt_devkit.rescale_models(os.path.join(src, "models"), os.path.join(dk, "models"), classes)
+    adapt_devkit.calc_extents(os.path.join(dk, "models"), classes)
+    adapt_devkit.adapt_images(os.path.join(src, "test"), dk, classes)
+    write_splits(dk, TK_SMALL_TRAIN)
+    gen_gt_observed.gen_gt_observed(dk, classes, batch=TK_BATCH, device=dev, **kw)
+    gen_rendered_pose.gen_rendered_pose(dk, classes, per_observed=2, **kw)
+    gen_rendered.gen_rendered(dk, classes, per_observed=2, batch=TK_BATCH, device=dev, **kw)
+    write_predictions(dk, preds, K64, (TK_SMALL, TK_SMALL))
+    gen_posecnn_rendered.gen_posecnn_rendered(dk, preds, classes, batch=TK_BATCH, device=dev, **kw)
+    syn_poses.gen_poses(dk, syn_root, classes, num_images=TK_SMALL_SYN, margin=8, **kw)
+    os.symlink(os.path.join(dk, "models"), os.path.join(syn_root, "models"))
+    syn_poses.gen_observed(syn_root, classes, batch=TK_BATCH, device=dev, **kw)
+    gen_rendered_pose.gen_rendered_pose(syn_root, classes, per_observed=1, **kw)
+    gen_rendered.gen_rendered(syn_root, classes, per_observed=1, batch=TK_BATCH, device=dev, **kw)
+    report = syn_poses.check(syn_root, classes, vis_dir=os.path.join(root, "vis"))
+    pairdb = PairDB(name="LM6D_REFINE", devkit_path=dk, image_set="train_sphere", cur_class="sphere").gt_pairdb()
+    return {"check": report, "se3": stats.stat_se3(pairdb, device=dev), "depth": stats.stat_depth(pairdb)}
+
+
+def toolkit_card_vs_cpu(dev, card: str) -> dict:
+    """15B: toolkit_small on the card and on the CPU from one 64x64 source;
+    every file equal (PNGs after decoding: depth and labels at every pixel,
+    rgb within 1 level), stat_se3 to 1e-5, the check reports equal, and
+    the card's launches exactly the planned count."""
+    import scipy.io as sio
+
+    meshes = {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 4)}
+    src = os.path.join(PHASE15_DIR, "small", "src")
+    write_bop_source(src, meshes, TK_SMALL_FRAMES, K64, (TK_SMALL, TK_SMALL), "cpu")
+    roots = {d: os.path.join(PHASE15_DIR, "small", d) for d in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = {"cuda": toolkit_small(src, roots["cuda"], dev)}
+    card_s = time.perf_counter() - t0
+    counts = launch_counts()
+    plan = tk_expected_launches(TK_SMALL_FRAMES, TK_SMALL_TRAIN, 2, TK_SMALL_SYN, 1)
+    n = sum(v for key, v in plan.items() if key != "source")
+    if counts != {"csr_raster": n, "csr_planes_raster": 0, "tile_raster": n}:
+        raise AssertionError(f"toolkit 64x64: launches {counts}, want csr_raster and tile_raster {n} each")
+    t0 = time.perf_counter()
+    out["cpu"] = toolkit_small(src, roots["cpu"], "cpu")
+    cpu_s = time.perf_counter() - t0
+    files = tk_files(roots["cpu"])
+    if files != tk_files(roots["cuda"]):
+        raise AssertionError(f"toolkit 64x64: the card wrote {sorted(set(files) ^ set(tk_files(roots['cuda'])))}")
+    pngs = rgb_off = 0
+    for rel in files:
+        a, b = (os.path.join(roots[d], rel) for d in ("cuda", "cpu"))
+        if rel.endswith(".png"):
+            x, y = read_png(a).astype(np.int32), read_png(b).astype(np.int32)
+            pngs += 1
+            colour = x.ndim == 3
+            if x.shape != y.shape or np.abs(x - y).max() > (1 if colour else 0):
+                raise AssertionError(f"toolkit 64x64: {rel} differs between the card and the CPU")
+            rgb_off += int((x != y).any(-1).sum()) if colour else 0
+        elif rel.endswith(".mat"):
+            ma, mb = sio.loadmat(a), sio.loadmat(b)
+            if any(not np.array_equal(ma[key], mb[key]) for key in ma if not key.startswith("__")):
+                raise AssertionError(f"toolkit 64x64: {rel} differs between the card and the CPU")
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f"toolkit 64x64: {rel} differs between the card and the CPU")
+    se3_err = max(float(np.abs(x - y).max()) for x, y in zip(out["cuda"]["se3"], out["cpu"]["se3"]))
+    if se3_err > 1e-5 or out["cuda"]["check"] != out["cpu"]["check"] or out["cuda"]["depth"] != out["cpu"]["depth"]:
+        raise AssertionError(f"toolkit 64x64: stats or check differ: {out}")
+    log(f"[toolkit 64x64] card vs CPU: {len(files)} files ({pngs} PNGs) equal, {rgb_off} colour pixels one level "
+        f"apart; stat_se3 max diff {se3_err:.3g}; card {card_s:.3f} s (launches {counts}), CPU {cpu_s:.3f} s "
+        f"[{card}]")
+    return out
+
+
+def toolkit_test_deepim(dk: str, dev, card: str) -> dict:
+    """15D: test_deepim with the recipe file on the PoseCNN_val_ sets the
+    toolkit wrote (batch 16, 4 iterations, bf16, a seeded checkpoint):
+    csr_raster (the bank pads both classes past 2,048 faces) launched
+    exactly as planned and nothing else, every table finite, no dropped
+    pair."""
+    cfg = update_config_dict(load_config(EVAL_CFG), {
+        "output_path": os.path.join(PHASE15_DIR, "output"),
+        "dataset": {"dataset_path": dk, "root_path": dk, "model_dir": os.path.join(dk, "models"),
+                    "class_name": list(TK_CLASSES), "NUM_CLASSES": len(TK_CLASSES),
+                    "test_image_set": "PoseCNN_val_"},
+    })
+    cfg = validate_config(cfg)
+    classes, n_iter = list(cfg.dataset.class_name), cfg.TEST.test_iter
+    pairs = {cls: len(load_gt_pairdb(cfg, "LM6D_REFINE", f"PoseCNN_val_{cls}", cls, dk, dk)[1]) for cls in classes}
+    expect = n_iter * sum(math.ceil(n / EVAL_B) for n in pairs.values())
+    out = os.path.join(PHASE15_DIR, "output", "test")
+    save_checkpoint(os.path.join(out, cfg.TRAIN.model_prefix), cfg.TEST.test_epoch,
+                    TrainState(make_model(True, 15, dev, hw=(cfg.height, cfg.width)), None))
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = test_deepim(cfg, output_dir=out, batch_size=EVAL_B, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": 0}:
+        raise AssertionError(f"toolkit test_deepim: launches {counts}, want csr_raster {expect}")
+    run = res["run"]
+    if run["pairs"] != sum(pairs.values()) or run["raster_dropped"]:
+        raise AssertionError(f"toolkit test_deepim: {run}")
+    check_tables("toolkit test_deepim", res, classes, n_iter)
+    loop_s = run["data_s"] + run["net_s"]
+    log(f"[toolkit test_deepim] PoseCNN_val_ of the adapted devkit ({pairs} pairs, batch {EVAL_B}, {n_iter} "
+        f"iterations, bf16): {run['pairs'] / loop_s:.2f} frames/s over pred_eval's loop (data {run['data_s']:.3f} s + "
+        f"net {run['net_s']:.3f} s), the call {wall:.3f} s; launches {counts}; every table finite, no dropped pair; "
+        f"iteration {n_iter} 5cm5deg {[round(res['pose'][c][n_iter - 1]['acc_5cm_5deg'], 4) for c in classes]} "
+        f"[{card}]")
+    return {"launches": expect, "frames_s": run["pairs"] / loop_s}
+
+
+def drive_phase15(dev, card: str) -> dict:
+    """Phase 15: the BOP source, 15A (the CLIs), the layout and drop checks,
+    both kernels against their twins at the toolkit's renders (15C), 15B
+    and 15D.  Returns each kernel's checks (toolkit_, toolkit_lit_ keys)."""
+    shutil.rmtree(PHASE15_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    meshes = {"cube": make_test_cube(0.08), "sphere": make_icosphere(0.05, 5)}
+    base, src = os.path.join(PHASE15_DIR, "full"), os.path.join(PHASE15_DIR, "src")
+    clock = StageClock()
+    plan = tk_expected_launches(TK_FRAMES, TK_TRAIN, TK_PER_OBSERVED, TK_SYN, TK_SYN_PER_OBSERVED)
+    source = run_toolkit_stage("source (BOP)", lambda: write_bop_source(src, meshes, TK_FRAMES, TK_K, (H, W), dev),
+                               plan["source"], 0, clock, card)
+    stages = toolkit_mains(src, base, TK_FRAMES, TK_TRAIN, TK_PER_OBSERVED, TK_SYN, TK_SYN_PER_OBSERVED, clock, dev,
+                           card)
+    check_toolkit_layout(base, source["out"], TK_FRAMES, TK_TRAIN, TK_PER_OBSERVED, TK_SYN, TK_SYN_PER_OBSERVED, card)
+    dropped, n_poses = sphere_dropped_pairs(base, dev)
+    if dropped:
+        raise AssertionError(f"toolkit: {dropped} face-tile pairs dropped over the sphere's {n_poses} poses")
+    # Launches within BatchRenderer over the toolkit's stages, lit and
+    # unlit as counted there, against the plan: gen-observed's lit half is
+    # the only lit rendering.
+    lit_plan = plan["syn gen-observed"] // 2
+    unlit_plan = sum(n for label, n in plan.items() if label != "source") - lit_plan
+    want = {(name, lit): n for name in ("csr_raster", "tile_raster") for lit, n in ((False, unlit_plan),
+                                                                                   (True, lit_plan))}
+    if clock.launches != want:
+        raise AssertionError(f"toolkit: launches within BatchRenderer {clock.launches}, want {want}")
+    checks = {}
+    for (nfaces, lit), (renderer, poses, corner_colors) in sorted(clock.calls.items()):
+        (name, args), = kernel_inputs(renderer._verts, renderer._cols, renderer._faces, renderer._fvalid, poses,
+                                      renderer._k, renderer.cfg, corners=renderer._corners,
+                                      corner_colors=corner_colors, device=dev)
+        if name != ("csr_raster" if nfaces > 2048 else "tile_raster"):
+            raise AssertionError(f"toolkit: a {nfaces}-face render plans {name}")
+        check = check_kernel(name, args, card, shape=f"toolkit {'lit' if lit else 'unlit'} ({nfaces} faces)")
+        if check["max_abs_err"] != 0.0:
+            raise AssertionError(f"toolkit: {name} differs from its twin by {check['max_abs_err']}")
+        del check["out"]
+        check["launches"] = clock.launches[name, lit]
+        checks.setdefault(name, {})["toolkit_lit" if lit else "toolkit"] = check
+    if sorted((n, sorted(c)) for n, c in checks.items()) != [("csr_raster", ["toolkit", "toolkit_lit"]),
+                                                            ("tile_raster", ["toolkit", "toolkit_lit"])]:
+        raise AssertionError(f"toolkit: kernel checks {sorted(checks)}")
+    toolkit_card_vs_cpu(dev, card)
+    deepim = toolkit_test_deepim(os.path.join(base, "dk"), dev, card)
+    rendering = [s for label, s in stages.items() if label != "stats" and s["frames"]]
+    frames = sum(s["frames"] for s in rendering)
+    log(f"[toolkit] {frames} frames written by the rendering stages at {H}x{W}: "
+        + ", ".join(f"{key} {sum(s[key] for s in rendering) / frames * 1e3:.3f} ms"
+                    for key in ("render", "readback", "encode", "write", "other"))
+        + f" a frame, {sum(s['png_bytes'] for s in rendering) / frames / 1e3:.1f} kB of PNG a frame; launches "
+        f"within BatchRenderer (kernel, lit): {sorted(clock.launches.items())}; no dropped "
+        f"pair over the sphere's {n_poses} poses; test_deepim {deepim['frames_s']:.2f} frames/s; phase 15 "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return checks
+
+
+ALL_PHASES = set(range(1, 16))
 KERNEL_PHASES = set(range(2, 7))  # phase 2's scenes carry phases 3-6: they run together
 
 
@@ -2797,7 +3400,7 @@ def main(argv: list | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke run of deepim_tpu_torch")
-    ap.add_argument("--phases", default="1-14", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
+    ap.add_argument("--phases", default="1-15", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
                     "always runs, 2-6 run together, 11 needs 8)")
     ap.add_argument("--dp-rank", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 12
     args = ap.parse_args(argv)
@@ -2950,6 +3553,12 @@ def main(argv: list | None = None) -> int:
         for name, runs in drive_phase14(dev, card).items():
             extras.setdefault(name, {}).update(runs)
         log(f"[phase 14] took {time.perf_counter() - t14:.1f} s [{card}]")
+    if 15 in phases:
+        # 15. The data-preparation toolkit, then test_deepim on what it wrote.
+        t15 = time.perf_counter()
+        for name, runs in drive_phase15(dev, card).items():
+            extras.setdefault(name, {}).update(runs)
+        log(f"[phase 15] took {time.perf_counter() - t15:.1f} s [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
@@ -2963,8 +3572,12 @@ def main(argv: list | None = None) -> int:
     # launches on each rank and the ranks; then each kernel at phase 13's
     # renders (modelnet_, textured_eval_, textured_train_, standalone_ keys:
     # lit colours, texture coordinates, the standalone renderer) and
-    # tile_raster at phase 14's (bench_train_, occ_eval_ keys).  Without
-    # phase 2, the first later figures of a kernel are its own.
+    # tile_raster at phase 14's (bench_train_, occ_eval_ keys), and each
+    # at phase 15's toolkit renders (toolkit_, toolkit_lit_ keys: its
+    # class's first unlit and lit batch; its launches within BatchRenderer
+    # over the toolkit's stages, unlit and lit as counted there).  Without
+    # phase 2, the first
+    # later figures of a kernel are its own.
     base = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     for name, run in [("csr_raster", dp)] + [(n, next(iter(r.values()))) for n, r in extras.items()]:
         if run is not None and name not in results:
