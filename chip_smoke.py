@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 13   # phase 1 and phase 13 alone
     python3 chip_smoke.py --phases 14   # phase 1 and phase 14 (the benchmark runners) alone
     python3 chip_smoke.py --phases 15   # phase 1 and phase 15 (the data-preparation toolkit) alone
+    python3 chip_smoke.py --phases 16   # phase 1 and phase 16 (the recipe from pretrained weights) alone
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device and build: the card's name and power limit, torch's CUDA
@@ -241,6 +242,28 @@ Phases (each raises on failure; the script then exits non-zero):
      It prints each stage's seconds a frame split into render (rasterize up
      to a device synchronize), readback, PNG encode and file writes, the
      PNG bytes a frame, test_deepim's frames/s and the phase's seconds.
+ 16. the training recipe as written, under deepim_tpu_torch/_build/phase16/
+     (its two .params files removed at the end): a 480x640 devkit of the
+     20,480-face sphere (8 training pairs, read as LM6D_REFINE and as
+     LM6D_REFINE_SYN) with a VOC2012 pool of four JPEGs written by this
+     script's baseline encoder (500x375, 500x333 and 375x500; 4:2:0 and
+     4:4:4, one with a restart interval), each decoded by utils/jpeg.py on
+     the host and held to its source (PSNR); a seeded vanilla-FlowNetS
+     flownet-0000.params (6-channel flow_conv1, the encoder, deconv5/4, the
+     flow predictors and upsampling_weight, no heads: 36.7 M parameters);
+     then train_net on lm6d_ape_iter4_8epoch.yaml as written but for the
+     paths, network.pretrained (the file) and REPLACE_OBSERVED_BG_RATIO
+     0.5, for one epoch of 4 steps.  Checked: before the first step every
+     imported tensor on the card equals the file's array under the mapping
+     (flow_conv1 BGR -> RGB and widened with zeros), the heads equal a
+     fresh seeded build, and mxnet_from_state_dict of that network read
+     back equals the file; every data_syn sample and exactly the real
+     samples whose draw fell below the ratio had their background
+     replaced; every loss finite, no pair dropped, every parameter
+     updated; csr_raster launched exactly as planned and equal to its twin
+     at the recipe's render.  It prints init_pretrained's ms, read_jpeg's
+     ms a background, s a step and samples/s, whether the native
+     mesh/points reader loaded and its parse ms.
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -252,10 +275,13 @@ import dataclasses
 import json
 import math
 import os
+import random
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3375,7 +3401,515 @@ def drive_phase15(dev, card: str) -> dict:
     return checks
 
 
-ALL_PHASES = set(range(1, 16))
+# Phase 16: the training recipe as written, fine-tuning a FlowNet from an
+# MXNet .params file, with VOC JPEG backgrounds (files written here, under
+# a gitignored directory, and removed at the end of the phase).
+PHASE16_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase16")
+RECIPE_PAIRS = 8      # sphere training pairs, read as LM6D_REFINE and as LM6D_REFINE_SYN: 4 steps of batch 4
+RECIPE_BG_RATIO = 0.5
+FLOWNET_SEED = 16
+# The VOC pool: (height, width) of VOC2012's common sizes, and each file's
+# encoding (chroma sampling, restart interval in MCUs).
+VOC_POOL = (((375, 500), "420", 0), ((333, 500), "444", 0), ((500, 375), "420", 4), ((375, 500), "444", 0))
+VOC_QUALITY = 90
+VOC_MIN_PSNR = 30.0   # dB of a decoded background against its source
+# The vanilla FlowNetS the recipe fine-tunes (deepIM_flownet.py:63-230):
+# name -> (out, in, kernel); the first layer reads two BGR images.
+FLOWNET_CONVS = (("flow_conv1", 64, 6, 7), ("conv2", 128, 64, 5), ("conv3", 256, 128, 5), ("conv3_1", 256, 256, 3),
+                 ("conv4", 512, 256, 3), ("conv4_1", 512, 512, 3), ("conv5", 512, 512, 3), ("conv5_1", 512, 512, 3),
+                 ("conv6", 1024, 512, 3), ("conv6_1", 1024, 1024, 3), ("Convolution1", 2, 1024, 3),
+                 ("Convolution2", 2, 1026, 3), ("Convolution3", 2, 770, 3))
+FLOWNET_DECONVS = (("deconv5", 1024, 512), ("deconv4", 1026, 256), ("upsample_flow6to5", 2, 2),
+                   ("upsample_flow5to4", 2, 2))
+HEAD_LAYERS = ("fc6", "fc7", "rot", "trans", "mask_conv3")
+
+
+def write_flownet_params(path: str) -> dict:
+    """A seeded vanilla-FlowNetS checkpoint in the reference's format
+    (save_mxnet_params, "arg:" names): the encoder, deconv5/deconv4, the
+    flow predictors and upsamplers, the frozen bilinear upsampling_weight;
+    no fc/rot/trans or mask heads.  Weights are normal with a standard
+    deviation of 1/sqrt(fan_in), biases 0.01 normal.  Returns the arrays."""
+    from deepim_tpu_torch.models.import_mxnet import bilinear_kernel
+    from deepim_tpu_torch.utils.mxnet_io import save_mxnet_params
+
+    rng = np.random.default_rng(FLOWNET_SEED)
+    arrays = {}
+    for name, cout, cin, k in FLOWNET_CONVS:
+        scale = np.float32(math.sqrt(cin * k * k))
+        arrays[f"{name}_weight"] = rng.standard_normal((cout, cin, k, k), np.float32) / scale
+        arrays[f"{name}_bias"] = rng.standard_normal(cout, np.float32) * np.float32(0.01)
+    for name, cin, cout in FLOWNET_DECONVS:
+        arrays[f"{name}_weight"] = rng.standard_normal((cin, cout, 4, 4), np.float32) / np.float32(math.sqrt(cin * 4))
+        arrays[f"{name}_bias"] = rng.standard_normal(cout, np.float32) * np.float32(0.01)
+    arrays["upsampling_weight"] = bilinear_kernel(2)
+    save_mxnet_params(path, arrays)
+    return arrays
+
+
+# -- a baseline JPEG encoder (the VOC pool's files; the package decodes only) --
+
+def _zigzag() -> np.ndarray:
+    """Natural index of each zig-zag position."""
+    cells = sorted(((i + j, i if (i + j) % 2 else j, i * 8 + j) for i in range(8) for j in range(8)))
+    return np.array([c[2] for c in cells])
+
+
+ZIGZAG = _zigzag()
+LUMA_Q = np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+                   14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+                   49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+CHROMA_Q = np.full(64, 99)
+CHROMA_Q[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+
+
+def _quant_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """libjpeg's jpeg_quality_scaling of a base table (natural order)."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _huffman_lengths(freq: dict) -> tuple[list, list]:
+    """JPEG's optimal code for symbol frequencies, limited to 16 bits with
+    no all-ones code (Annex K.2, libjpeg's jpeg_gen_optimal_table): (counts
+    of codes of each length 1-16, symbols in code order)."""
+    f = [freq.get(i, 0) for i in range(256)] + [1]
+    size, others = [0] * 257, [-1] * 257
+    while True:
+        used = [i for i in range(257) if f[i]]
+        if len(used) < 2:
+            break
+        c1 = max(used, key=lambda i: (-f[i], i))
+        c2 = max((i for i in used if i != c1), key=lambda i: (-f[i], i))
+        f[c1] += f[c2]
+        f[c2] = 0
+        size[c1] += 1
+        while others[c1] >= 0:
+            c1 = others[c1]
+            size[c1] += 1
+        others[c1] = c2
+        size[c2] += 1
+        while others[c2] >= 0:
+            c2 = others[c2]
+            size[c2] += 1
+    bits = [0] * 33
+    for s in size:
+        if s:
+            bits[s] += 1
+    for i in range(32, 16, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1
+    symbols = [s for length in range(1, 33) for s in range(256) if size[s] == length]
+    return bits[1:17], symbols
+
+
+def _canonical_codes(counts: list, symbols: list) -> dict:
+    codes, code, k = {}, 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            codes[symbols[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    return codes
+
+
+def _size_bits(v: int) -> tuple[int, int]:
+    """(size category, the value's extra bits) of a DC difference or AC
+    coefficient."""
+    s = abs(v).bit_length()
+    return s, (v if v >= 0 else v + (1 << s) - 1)
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = VOC_QUALITY, sampling: str = "420", restart: int = 0) -> bytes:
+    """A baseline (SOF0) JFIF JPEG of an (h, w, 3) uint8 RGB image: YCbCr
+    with 4:2:0 or 4:4:4 chroma, float DCT, libjpeg's quality-scaled tables,
+    optimal Huffman tables and, with `restart`, a restart marker every
+    `restart` MCUs."""
+    h, w = rgb.shape[:2]
+    f = rgb.astype(np.float64)
+    ycc = [0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2],
+           -0.168736 * f[..., 0] - 0.331264 * f[..., 1] + 0.5 * f[..., 2] + 128,
+           0.5 * f[..., 0] - 0.418688 * f[..., 1] - 0.081312 * f[..., 2] + 128]
+    hv = 2 if sampling == "420" else 1
+    mcu = 8 * hv
+    mh, mw = -(-h // mcu), -(-w // mcu)
+    planes = []
+    for ci, p in enumerate(ycc):
+        p = np.pad(p, ((0, mh * mcu - h), (0, mw * mcu - w)), mode="edge")
+        if ci and hv == 2:
+            p = p.reshape(mh * 8, 2, mw * 8, 2).mean(axis=(1, 3))
+        planes.append(p)
+    n = np.arange(8)
+    dct = np.sqrt(2 / 8) * np.cos((2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
+    dct[0] /= np.sqrt(2)
+    qtabs = [_quant_table(LUMA_Q, quality), _quant_table(CHROMA_Q, quality)]
+    blocks = []  # per component: (rows, cols, 64) quantised, zig-zag order
+    for ci, p in enumerate(planes):
+        b = (p - 128).reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8).transpose(0, 2, 1, 3)
+        c = np.einsum("ui,rcij,vj->rcuv", dct, b, dct).reshape(b.shape[0], b.shape[1], 64)
+        blocks.append(np.round(c / qtabs[min(ci, 1)]).astype(np.int64)[:, :, ZIGZAG])
+    # Symbols in scan order: (table, symbol, extra bits, extra length), and
+    # the index of the first symbol of each restart interval.
+    order = [(0, dy, dx) for dy in range(hv) for dx in range(hv)] + [(1, 0, 0), (2, 0, 0)]
+    syms, starts, pred = [], [], [0, 0, 0]
+    for m in range(mh * mw):
+        if restart and m % restart == 0:
+            starts.append(len(syms))
+            pred = [0, 0, 0]
+        my, mx = divmod(m, mw)
+        for ci, dy, dx in order:
+            zz = blocks[ci][my * (hv if ci == 0 else 1) + dy, mx * (hv if ci == 0 else 1) + dx]
+            t = min(ci, 1)
+            s, v = _size_bits(int(zz[0]) - pred[ci])
+            pred[ci] = int(zz[0])
+            syms.append((2 * t, s, v, s))
+            run = 0
+            nz = np.flatnonzero(zz[1:]) + 1
+            last = 0
+            for k in nz:
+                run = int(k) - last - 1
+                while run > 15:
+                    syms.append((2 * t + 1, 0xF0, 0, 0))
+                    run -= 16
+                s, v = _size_bits(int(zz[k]))
+                syms.append((2 * t + 1, (run << 4) | s, v, s))
+                last = int(k)
+            if last < 63:
+                syms.append((2 * t + 1, 0x00, 0, 0))
+    tables = []
+    for tid in range(4):
+        freq = {}
+        for table, sym, _, _ in syms:
+            if table == tid:
+                freq[sym] = freq.get(sym, 0) + 1
+        tables.append(_huffman_lengths(freq))
+    codes = [_canonical_codes(*t) for t in tables]
+    vals = np.array([(codes[t][s][0] << n) | v for t, s, v, n in syms], np.uint64)
+    lens = np.array([codes[t][s][1] + n for t, s, _, n in syms], np.int64)
+
+    def pack(lo: int, hi: int) -> bytes:
+        v, ln = vals[lo:hi], lens[lo:hi]
+        total = int(ln.sum())
+        offs = np.arange(total) - np.repeat(np.cumsum(ln) - ln, ln)
+        bits = (np.repeat(v, ln) >> np.repeat(ln, ln).astype(np.uint64) - 1 - offs.astype(np.uint64)) & 1
+        bits = np.concatenate([bits.astype(np.uint8), np.ones(-total % 8, np.uint8)])
+        return np.packbits(bits).tobytes().replace(b"\xff", b"\xff\x00")
+
+    bounds = (starts or [0]) + [len(syms)]
+    data = b"".join(pack(lo, hi) + (bytes([0xFF, 0xD0 + i % 8]) if i + 2 < len(bounds) else b"")
+                    for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])))
+
+    def segment(marker: int, body: bytes) -> bytes:
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    out = [b"\xff\xd8", segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    out += [segment(0xDB, bytes([t]) + bytes(int(x) for x in q[ZIGZAG])) for t, q in enumerate(qtabs)]
+    samp = [(hv << 4) | hv, 0x11, 0x11]
+    out.append(segment(0xC0, struct.pack(">BHHB", 8, h, w, 3)
+                       + b"".join(bytes([ci + 1, samp[ci], min(ci, 1)]) for ci in range(3))))
+    for tid, (counts, symbols) in enumerate(tables):
+        out.append(segment(0xC4, bytes([(tid % 2) << 4 | tid // 2]) + bytes(counts) + bytes(symbols)))
+    if restart:
+        out.append(segment(0xDD, struct.pack(">H", restart)))
+    out.append(segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    return b"".join(out) + data + b"\xff\xd9"
+
+
+def voc_scene(hw: tuple, seed: int) -> np.ndarray:
+    """A seeded (h, w, 3) uint8 stand-in for a VOC photograph: smooth
+    shading, a few flat and textured rectangles, mild noise."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([90 + 80 * np.sin(xx / 53 + c) * np.cos(yy / 37 - c) + 40 * c for c in range(3)], -1)
+    for _ in range(6):
+        y0, x0 = rng.integers(0, h - 40), rng.integers(0, w - 40)
+        y1, x1 = y0 + rng.integers(20, h // 2), x0 + rng.integers(20, w // 2)
+        colour = rng.uniform(20, 235, 3)
+        stripes = 25 * np.sin(xx[y0:y1, x0:x1, None] / rng.uniform(2, 9)) if rng.random() < 0.5 else 0
+        img[y0:y1, x0:x1] = colour + stripes
+    return np.clip(img + rng.normal(0, 3, img.shape), 0, 255).astype(np.uint8)
+
+
+def write_voc_pool(root: str, card: str) -> dict:
+    """VOCdevkit/VOC2012 under `root` as the reference lays it out: the
+    pool's JPEGs (encode_jpeg) listed with label 1 in
+    ImageSets/Main/diningtable_trainval.txt.  Decodes each with the port's
+    read_jpeg on the host CPU, checks it against its source (shape, PSNR)
+    and returns the decode times."""
+    from deepim_tpu_torch.utils.jpeg import read_jpeg
+
+    voc = os.path.join(root, "VOCdevkit", "VOC2012")
+    os.makedirs(os.path.join(voc, "ImageSets", "Main"))
+    os.makedirs(os.path.join(voc, "JPEGImages"))
+    lines, decode_ms, psnr, sizes = [], [], [], []
+    for i, (hw, sampling, restart) in enumerate(VOC_POOL):
+        src = voc_scene(hw, FLOWNET_SEED + i)
+        data = encode_jpeg(src, VOC_QUALITY, sampling, restart)
+        path = os.path.join(voc, "JPEGImages", f"2008_{i:06d}.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        back = read_jpeg(path)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        mse = float(((back.astype(np.float64) - src) ** 2).mean())
+        psnr.append(10 * math.log10(255 ** 2 / max(mse, 1e-12)))
+        if back.shape != src.shape or psnr[-1] < VOC_MIN_PSNR:
+            raise AssertionError(f"VOC pool: {path} decodes to {back.shape} at {psnr[-1]:.1f} dB, want {src.shape} "
+                                 f"at {VOC_MIN_PSNR} dB or more")
+        sizes.append(len(data))
+        lines.append(f"2008_{i:06d}  1")
+    with open(os.path.join(voc, "ImageSets", "Main", "diningtable_trainval.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    files = ", ".join(f"{hw[1]}x{hw[0]} {s}" + (f" RST every {r}" if r else "") for hw, s, r in VOC_POOL)
+    log(f"[recipe] VOC pool: {len(VOC_POOL)} baseline JPEGs ({files}, "
+        f"quality {VOC_QUALITY}, {sum(sizes) / len(sizes) / 1e3:.1f} kB each); read_jpeg "
+        f"{', '.join(f'{ms:.1f}' for ms in decode_ms)} ms a background on the host CPU (median "
+        f"{statistics.median(decode_ms):.1f}), {min(psnr):.1f}-{max(psnr):.1f} dB against the sources [{card}]")
+    return {"decode_ms": decode_ms, "psnr": psnr}
+
+
+class SubstitutionCount:
+    """Each training sample's data_syn flag, whether make_train_sample
+    should substitute its background (always for data_syn; else when the
+    sample's first draw, read from a copy of its generator, falls below
+    REPLACE_OBSERVED_BG_RATIO) and whether replace_background did, from
+    wrappers installed while train_net runs (the loader's worker threads
+    keep their own flag)."""
+
+    def __init__(self):
+        self.rows = []
+        self.local = threading.local()
+
+    @contextlib.contextmanager
+    def installed(self):
+        from deepim_tpu_torch.data import loader as loader_mod
+        from deepim_tpu_torch.data.preprocess import VOCBackgrounds
+
+        real_make, real_replace = loader_mod.make_train_sample, VOCBackgrounds.replace_background
+
+        def replace(voc, im, mask, rng, cache=None):
+            out = real_replace(voc, im, mask, rng, cache)
+            self.local.fired = out is not im
+            return out
+
+        def make(rec, cfg, points, rng, nprng, voc=None, cache=None):
+            probe = random.Random()
+            probe.setstate(rng.getstate())
+            syn = bool(rec.get("data_syn", False))
+            expect = syn or probe.random() < cfg.TRAIN.REPLACE_OBSERVED_BG_RATIO
+            self.local.fired = False
+            out = real_make(rec, cfg, points, rng, nprng, voc, cache=cache)
+            self.rows.append((syn, expect, self.local.fired))
+            return out
+
+        loader_mod.make_train_sample, VOCBackgrounds.replace_background = make, replace
+        try:
+            yield self
+        finally:
+            loader_mod.make_train_sample, VOCBackgrounds.replace_background = real_make, real_replace
+
+
+def check_imported(label: str, model, source: dict, fresh: dict, export_path: str) -> None:
+    """The network as train_net hands it to the train step: each layer of
+    the file equal to its array under the mapping (encoder, decoder and
+    flow layers as stored; flow_conv1's two image blocks reversed, BGR to
+    RGB, and its two mask channels zero), every head equal to a fresh
+    seeded build, and mxnet_from_state_dict of it, written and read back,
+    equal to the file's arrays (flow_conv1's first 6 channels)."""
+    from deepim_tpu_torch.models.import_mxnet import mxnet_from_state_dict
+    from deepim_tpu_torch.utils.mxnet_io import load_mxnet_params, save_mxnet_params
+
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+    keys = {name: f"convs.{name}" if name.startswith(("flow_conv", "conv")) else name for name, *_ in FLOWNET_CONVS}
+    keys.update({name: f"{name}.deconv" for name, *_ in FLOWNET_DECONVS})
+    bad = []
+    for name, key in keys.items():
+        w, b = sd[f"{key}.weight"].cpu().numpy(), sd[f"{key}.bias"].cpu().numpy()
+        want = source[f"{name}_weight"]
+        if name == "flow_conv1":
+            ok = np.array_equal(w[:, :6], want[:, [2, 1, 0, 5, 4, 3]]) and not w[:, 6:].any()
+        else:
+            ok = np.array_equal(w, want)
+        if not ok or not np.array_equal(b, source[f"{name}_bias"]):
+            bad.append(name)
+    heads = [k for k in sd if k.rsplit(".", 1)[0] in HEAD_LAYERS]
+    bad += [k for k in heads if not torch.equal(sd[k].cpu(), fresh[k])]
+    if bad:
+        raise AssertionError(f"{label}: the network before its first step differs from the import in {bad}")
+    save_mxnet_params(export_path, mxnet_from_state_dict(sd, input_hw=(H, W)))
+    back = load_mxnet_params(export_path)
+    for k, v in source.items():
+        got = back[k][:, :6] if k == "flow_conv1_weight" else back[k]
+        if not np.array_equal(got, v):
+            bad.append(k)
+    if bad:
+        raise AssertionError(f"{label}: the export of the initial network differs from the file in {bad}")
+    log(f"[{label}] before the first step, on the card: {len(keys)} imported layers equal the file's arrays under "
+        f"the mapping, {len(heads)} head tensors equal a fresh seeded build; the export read back equals the "
+        f"file's {len(source)} arrays")
+
+
+def native_parse(devkit: str, card: str) -> dict:
+    """utils/native.py on the devkit's sphere: whether the library loaded,
+    and the ms of points.xyz and textured.obj parses (native where it
+    loaded, the Python parse beside it)."""
+    from deepim_tpu_torch.render import mesh as mesh_mod
+    from deepim_tpu_torch.utils import native
+
+    model_dir = os.path.join(devkit, "models", "sphere")
+    xyz, obj = os.path.join(model_dir, "points.xyz"), os.path.join(model_dir, "textured.obj")
+    out = {"loaded": native.available()}
+    for key, fn in (("xyz", lambda: native.load_points_xyz(xyz)), ("obj", lambda: mesh_mod.parse_obj(obj))):
+        t0 = time.perf_counter()
+        fn()
+        out[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3
+    real = mesh_mod.parse_obj_native
+    mesh_mod.parse_obj_native = lambda path: None
+    try:
+        t0 = time.perf_counter()
+        python_obj = mesh_mod.parse_obj(obj)
+        out["obj_python_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        mesh_mod.parse_obj_native = real
+    if out["loaded"]:
+        for a, b in zip(mesh_mod.parse_obj(obj), python_obj):
+            if not np.array_equal(a, b):
+                raise AssertionError("native OBJ parse differs from the Python parse on the sphere")
+    log(f"[recipe] native mesh/points reader {'loaded' if out['loaded'] else 'NOT loaded (Python parse)'}: "
+        f"points.xyz ({os.path.getsize(xyz) / 1e3:.0f} kB) {out['xyz_ms']:.2f} ms, textured.obj "
+        f"({os.path.getsize(obj) / 1e3:.0f} kB) {out['obj_ms']:.2f} ms, the Python parse {out['obj_python_ms']:.2f} ms "
+        f"[{card}]")
+    return out
+
+
+def recipe_config(devkit: str, params: str):
+    """lm6d_ape_iter4_8epoch.yaml as written but for the paths (the devkit's
+    sphere, its VOC pool), network.pretrained (the .params file), the
+    background ratio and one epoch: 4 steps."""
+    cfg = update_config_dict(load_config(EVAL_CFG), {
+        "output_path": os.path.join(PHASE16_DIR, "output"),
+        "dataset": {"dataset_path": devkit, "root_path": devkit, "model_dir": os.path.join(devkit, "models"),
+                    "class_name": ["sphere"]},
+        "network": {"pretrained": params},
+        "TRAIN": {"REPLACE_OBSERVED_BG_RATIO": RECIPE_BG_RATIO, "end_epoch": 1},
+    })
+    return validate_config(cfg)
+
+
+def drive_recipe(dev, card: str) -> dict:
+    """Phase 16 (see the module docstring).  Returns csr_raster's check at
+    the recipe's render with its launches (recipe_ keys)."""
+    label = "recipe"
+    shutil.rmtree(PHASE16_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    devkit = os.path.join(PHASE16_DIR, "devkit")
+    mesh = {"sphere": make_icosphere(0.05, 5)}
+    bank = MeshBank.from_meshes([mesh["sphere"]]).arrays()
+    raster = tune_raster_for_bank(EngineConfig(raster=RasterConfig(height=H, width=W)), bank, LINEMOD_K).raster
+    generate_dataset(devkit, mesh, LINEMOD_K, n_train=RECIPE_PAIRS, n_val=0, height=H, width=W, raster_cfg=raster,
+                     device=dev)
+    voc = write_voc_pool(devkit, card)
+    native = native_parse(devkit, card)
+    params = os.path.join(PHASE16_DIR, "flownet-0000.params")
+    t0 = time.perf_counter()
+    source = write_flownet_params(params)
+    n_params = sum(a.size for k, a in source.items() if k != "upsampling_weight")
+    log(f"[{label}] vanilla FlowNetS checkpoint: {len(source)} arrays, {n_params / 1e6:.2f} M parameters, "
+        f"{os.path.getsize(params) / 1e6:.1f} MB, written in {time.perf_counter() - t0:.2f} s")
+    cfg = recipe_config(devkit, params)
+    b, n_inner = cfg.TRAIN.BATCH_PAIRS, cfg.network.TRAIN_ITER_SIZE
+    steps = 2 * RECIPE_PAIRS // b
+
+    # One render's plan at the recipe's batch, and csr_raster against its twin there.
+    ecfg = EngineConfig.from_config(cfg, train=True, bank_arrays=build_mesh_bank(cfg))
+    _, recs = load_gt_pairdb(cfg, "LM6D_REFINE", "train_sphere", "sphere", devkit, devkit)
+    m = MeshBuffers.gather(build_mesh_bank(cfg), np.zeros(b, np.int64), device=dev)
+    plan = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid,
+                         torch.from_numpy(np.stack([r["pose_rendered"] for r in recs[:b]])),
+                         torch.from_numpy(cfg.dataset.intrinsic_matrix()), ecfg.raster, corners=m.corners,
+                         corner_colors=m.corner_colors, device=dev)
+    if {name for name, _ in plan} != {"csr_raster"}:
+        raise AssertionError(f"{label}: a render plans {[name for name, _ in plan]}")
+    kernel = check_kernel("csr_raster", plan[0][1], card, shape=label)
+    del kernel["out"]
+
+    fresh = build_model(cfg, device="cpu").state_dict()
+    seen, init_ms = {}, []
+    real_init, real_dp = train_net_mod.init_pretrained, train_net_mod.train_step_dp
+
+    def timed_init(c, model):
+        t0 = time.perf_counter()
+        real_init(c, model)
+        torch.cuda.synchronize()
+        init_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def first_step_check(step, mesh_, state, unused):
+        check_imported(label, state.model, source, fresh, os.path.join(PHASE16_DIR, "export.params"))
+        seen.update({k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()})
+        return real_dp(step, mesh_, state, unused)
+
+    subs = SubstitutionCount()
+    train_net_mod.init_pretrained, train_net_mod.train_step_dp = timed_init, first_step_check
+    try:
+        with subs.installed():
+            torch.cuda.synchronize()
+            rk.reset_launch_counts()
+            t0 = time.perf_counter()
+            state = train_net(cfg, output_dir=os.path.join(PHASE16_DIR, "train"), device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+    finally:
+        train_net_mod.init_pretrained, train_net_mod.train_step_dp = real_init, real_dp
+    if not seen or len(init_ms) != 1:
+        raise AssertionError(f"{label}: init_pretrained ran {len(init_ms)} times; the first-step check ran: "
+                             f"{bool(seen)}")
+    expect = len(plan) * n_inner * steps
+    if counts != {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": 0}:
+        raise AssertionError(f"{label}: launches {counts}, want csr_raster {expect} ({len(plan)} a render x {n_inner} "
+                             f"inner iterations x {steps} steps) and nothing else")
+    syn = [r for r in subs.rows if r[0]]
+    real = [r for r in subs.rows if not r[0]]
+    if len(subs.rows) != steps * b or any(e != f for _, e, f in subs.rows) or not syn or not all(f for *_, f in syn):
+        raise AssertionError(f"{label}: substitutions (data_syn, expected, fired) {subs.rows}")
+    e = state.epochs[0]
+    if e["nonfinite_losses"] or e["raster_dropped"]:
+        raise AssertionError(f"{label}: {e['nonfinite_losses']} non-finite loss values, {e['raster_dropped']} dropped "
+                             "face-tile pairs")
+    params_now = state.model.state_dict()
+    still = [k for k, v in seen.items() if torch.equal(v, params_now[k].cpu())]
+    if still or state.step != steps * n_inner:
+        raise AssertionError(f"{label}: {state.step} updates; parameters not moved {still}")
+    losses = {k: v for k, v in e["metrics"].items() if k.endswith("loss")}
+    log(f"[{label}] train_net on {os.path.basename(EVAL_CFG)} as written (sphere devkit, VOC pool, network.pretrained "
+        f"= the .params file, REPLACE_OBSERVED_BG_RATIO {RECIPE_BG_RATIO}, 1 epoch): {steps} steps of {b} pairs x "
+        f"{n_inner} inner iterations at {H}x{W} in {e['loop_s']:.3f} s, {e['loop_s'] / steps:.3f} s a step, "
+        f"{e['samples'] / e['loop_s']:.2f} samples/s (no warm-up call in this phase: cold when it runs alone); "
+        f"init_pretrained {init_ms[0]:.1f} ms (read, import, load onto the card); train_net {wall:.3f} s in all "
+        f"[{card}]")
+    log(f"[{label}] substitutions: all {len(syn)} data_syn samples and {sum(f for *_, f in real)} of {len(real)} real "
+        f"ones (each as its draw decided); every loss finite ("
+        + ", ".join(f"{k} {float(v[0, -1]):.4g} -> {float(v[-1, -1]):.4g}" for k, v in sorted(losses.items()))
+        + f"), every parameter updated, launches {counts}; phase 16 {time.perf_counter() - t_phase:.1f} s [{card}]")
+    for path in (params, os.path.join(PHASE16_DIR, "export.params")):
+        os.remove(path)
+    kernel["launches"] = counts["csr_raster"]
+    return {"csr_raster": {"recipe": kernel}}
+
+
+ALL_PHASES = set(range(1, 17))
 KERNEL_PHASES = set(range(2, 7))  # phase 2's scenes carry phases 3-6: they run together
 
 
@@ -3400,7 +3934,7 @@ def main(argv: list | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke run of deepim_tpu_torch")
-    ap.add_argument("--phases", default="1-15", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
+    ap.add_argument("--phases", default="1-16", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
                     "always runs, 2-6 run together, 11 needs 8)")
     ap.add_argument("--dp-rank", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 12
     args = ap.parse_args(argv)
@@ -3559,6 +4093,12 @@ def main(argv: list | None = None) -> int:
         for name, runs in drive_phase15(dev, card).items():
             extras.setdefault(name, {}).update(runs)
         log(f"[phase 15] took {time.perf_counter() - t15:.1f} s [{card}]")
+    if 16 in phases:
+        # 16. The training recipe from pretrained FlowNet weights, with VOC backgrounds.
+        t16 = time.perf_counter()
+        for name, runs in drive_recipe(dev, card).items():
+            extras.setdefault(name, {}).update(runs)
+        log(f"[phase 16] took {time.perf_counter() - t16:.1f} s [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
@@ -3575,7 +4115,8 @@ def main(argv: list | None = None) -> int:
     # tile_raster at phase 14's (bench_train_, occ_eval_ keys), and each
     # at phase 15's toolkit renders (toolkit_, toolkit_lit_ keys: its
     # class's first unlit and lit batch; its launches within BatchRenderer
-    # over the toolkit's stages, unlit and lit as counted there).  Without
+    # over the toolkit's stages, unlit and lit as counted there), and
+    # csr_raster at phase 16's recipe render (recipe_ keys).  Without
     # phase 2, the first
     # later figures of a kernel are its own.
     base = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")

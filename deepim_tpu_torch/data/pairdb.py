@@ -24,6 +24,8 @@ from typing import Any
 
 import numpy as np
 
+from deepim_tpu_torch.utils.native import load_points_xyz
+
 # LINEMOD class table (LM6D_REFINE.py:70-86; bowl/cup excluded as in the
 # reference).
 LM_IDX2CLASS = {
@@ -99,10 +101,12 @@ class PairDB:
         raise KeyError(class_name)
 
     def points(self, cls_name: str) -> np.ndarray:
-        """models/<class>/points.xyz as (N, 3) float32."""
+        """models/<class>/points.xyz as (N, 3) float32 (LM6D_REFINE.py:101-110);
+        the native parser when native/libdeepim_meshio.so loads, numpy
+        otherwise."""
         if cls_name not in self._points:
             path = os.path.join(self.devkit_path, "models", cls_name, "points.xyz")
-            self._points[cls_name] = np.loadtxt(path).astype(np.float32).reshape(-1, 3)
+            self._points[cls_name] = load_points_xyz(path)
         return self._points[cls_name]
 
     def diameter(self, cls_name: str) -> float:

@@ -4,10 +4,12 @@ observed-mask strategies, random mask dilation, VOC background
 substitution, model-point sampling, and the training and test samples.
 
 Images are RGB float32 [0, 255], NCHW per sample; PNGs are decoded by
-utils/png.py, which returns RGB directly.  Rendered colour images are not
-loaded: the engine re-renders from pose_rendered.  resize_to acts only
-when the devkit's resolution differs from SCALES; it samples where
-cv2.resize(fx=scale, fy=scale, INTER_LINEAR) samples, on float32 arrays.
+utils/png.py and the VOC backgrounds (JPEGs) by utils/jpeg.py, which both
+return RGB directly.  Rendered colour images are not loaded: the engine
+re-renders from pose_rendered.  resize_to acts only when the devkit's
+resolution differs from SCALES; it samples where cv2.resize(fx=scale,
+fy=scale, INTER_LINEAR) samples, and resize_to_size where cv2.resize(im,
+(w, h), INTER_LINEAR) samples, on float32 arrays.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from deepim_tpu_torch.config import Config
+from deepim_tpu_torch.utils.jpeg import read_jpeg
 from deepim_tpu_torch.utils.png import read_png
 
 
@@ -80,12 +83,28 @@ def resize_to(im: np.ndarray, target_size: int, max_size: int) -> tuple[np.ndarr
         scale = float(max_size) / long_
     if scale == 1.0:
         return im, 1.0
+    return _bilinear(im, int(round(h * scale)), int(round(w * scale)), scale), scale
+
+
+def resize_to_size(im: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Resize to exactly (height, width) as cv2.resize(im, (width, height),
+    INTER_LINEAR) does: output pixel x reads the input at (x + 0.5) * in /
+    out - 0.5 on each axis, bilinearly.  A copy of the image itself when
+    the size is already right."""
+    if im.shape[:2] == (height, width):
+        return im.copy()
+    return _bilinear(im, height, width, None)
+
+
+def _bilinear(im: np.ndarray, out_h: int, out_w: int, scale: float | None) -> np.ndarray:
+    """(h, w) or (h, w, c) float32 -> (out_h, out_w[, c]) by
+    upsample_bilinear2d (align_corners=False), mapping by 1 / scale, or by
+    in / out on each axis when scale is None."""
     x = torch.from_numpy(np.ascontiguousarray(im, np.float32))
     x = x[None, None] if x.ndim == 2 else x.permute(2, 0, 1)[None]
-    out = torch.ops.aten.upsample_bilinear2d(x, [int(round(h * scale)), int(round(w * scale))], False,
-                                             scale, scale)[0]
+    out = torch.ops.aten.upsample_bilinear2d(x, [out_h, out_w], False, scale, scale)[0]
     out = out[0] if im.ndim == 2 else out.permute(1, 2, 0)
-    return out.numpy(), scale
+    return out.numpy()
 
 
 def load_image_rgb(path: str) -> np.ndarray:
@@ -160,11 +179,9 @@ def mask_dilate_np(mask: np.ndarray, rng: random.Random, max_thickness: int = 10
 class VOCBackgrounds:
     """VOC2012 background pool for synthetic observed images
     (lib/utils/image.py:97-155): the image ids listed with label 1 in
-    <root_path>/VOCdevkit/VOC2012/ImageSets/Main/diningtable_trainval.txt.
-    An empty or missing list makes replace_background a no-op, as on a
-    tools/synth_data devkit.  The backgrounds are JPEGs, and the port has no
-    JPEG decoder yet (ROADMAP A10), so replacing with a non-empty list
-    raises."""
+    <root_path>/VOCdevkit/VOC2012/ImageSets/Main/diningtable_trainval.txt,
+    read from JPEGImages/<id>.jpg.  An empty or missing list makes
+    replace_background a no-op, as on a tools/synth_data devkit."""
 
     def __init__(self, root_path: str):
         self.voc_root = os.path.join(root_path, "VOCdevkit/VOC2012")
@@ -177,13 +194,32 @@ class VOCBackgrounds:
                     if len(parts) == 2 and parts[1] == "1":
                         self.bg_list.append(parts[0])
 
-    def replace_background(self, im_observed: np.ndarray, fg_mask: np.ndarray, rng: random.Random) -> np.ndarray:
+    def replace_background(self, im_observed: np.ndarray, fg_mask: np.ndarray, rng: random.Random,
+                           cache: DecodeCache | None = None) -> np.ndarray:
+        """im_observed where fg_mask > 0, elsewhere a background drawn with
+        rng.randrange(len(bg_list)), cropped from its top left to the
+        observed aspect (rounding up) and resized to the observed size, as
+        the JAX package does with cv2.  A listed file that does not exist
+        leaves the image (cv2.imread's None).  `cache` memoizes the decoded
+        JPEG by path: decoding is pure, so no draw and no sample changes."""
         if not self.bg_list:
             return im_observed
-        raise NotImplementedError(
-            f"{self.voc_root} lists {len(self.bg_list)} VOC backgrounds, which are JPEGs; the port has no "
-            "JPEG decoder yet (ROADMAP A10: a numpy baseline-JPEG decoder).  Remove the list to train "
-            "without background substitution.")
+        h, w = im_observed.shape[:2]
+        idx = self.bg_list[rng.randrange(len(self.bg_list))]
+        path = os.path.join(self.voc_root, f"JPEGImages/{idx}.jpg")
+        if not os.path.isfile(path):
+            return im_observed
+        bg = _cached(cache, ("voc", path), lambda: read_jpeg(path)).astype(np.float32)
+        ratio = h / w
+        bh, bw = bg.shape[:2]
+        if bh >= bw * ratio:
+            bg = bg[: int(np.ceil(bw * ratio)), :bw]
+        else:
+            bg = bg[:bh, : int(np.ceil(bh / ratio))]
+        out = resize_to_size(bg, h, w)
+        fg = fg_mask > 0
+        out[fg] = im_observed[fg]
+        return out
 
 
 def sample_model_points(points: np.ndarray, num_sample: int, rng: np.random.RandomState):
@@ -235,7 +271,7 @@ def make_train_sample(
         and rng.random() < cfg.TRAIN.REPLACE_OBSERVED_BG_RATIO
     ):
         if voc is not None:
-            im_obs = voc.replace_background(im_obs, mask_gt, rng)
+            im_obs = voc.replace_background(im_obs, mask_gt, rng, cache)
 
     mask_gt_r = _cached(
         cache, ("maskgt", mask_src, pair_rec.get("mask_idx"), ts_ms),

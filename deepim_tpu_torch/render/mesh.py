@@ -17,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from deepim_tpu_torch.render.lighting import compute_vertex_normals
+from deepim_tpu_torch.utils.native import parse_obj_native
 from deepim_tpu_torch.utils.png import read_png, write_png
 
 
@@ -60,7 +61,15 @@ def parse_obj(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray
     Returns (vertices (V, 3), texcoords (T, 2), faces_v (F, 3), faces_vt
     (F, 3), vertex colours (V, 3) or (0, 3)).  Reads 'v' (with the
     'v x y z r g b' colour extension), 'vt' and 'f a/b/c' lines;
-    polygons are fan-triangulated, negative indices count from the end."""
+    polygons are fan-triangulated, negative indices count from the end.
+    As in the JAX package, the native parser (utils/native.py) reads the
+    file when its library loads; its texture index of a vertex without
+    one is 0."""
+    native = parse_obj_native(path)
+    if native is not None:
+        v, vt, fv, fvt, vc = native
+        return v, vt, fv, np.maximum(fvt, 0), vc
+
     verts: list[list[float]] = []
     vcols: list[list[float]] = []
     texs: list[list[float]] = []

@@ -4,7 +4,7 @@ gen_refine_video runs the refinement engine on a set of test pairs and
 writes a video where each frame shows, for one pair and one iteration, the
 observed image with the render's silhouette edge in green, the render at the
 current pose, and the zoomed (observed, rendered) pair the network sees.
-images_to_video stacks PNG files into a video.
+images_to_video stacks PNG and JPEG files into a video.
 
 Videos are lossless AVI files of PNG frames (utils/avi.py), where the JAX
 package writes lossy mp4v through cv2; the port's host has no video
@@ -34,6 +34,7 @@ from deepim_tpu_torch.engine.train import TrainState
 from deepim_tpu_torch.tools.train_net import build_mesh_bank, build_model
 from deepim_tpu_torch.utils.avi import check_avi_path, write_avi
 from deepim_tpu_torch.utils.edges import canny
+from deepim_tpu_torch.utils.jpeg import read_jpeg
 from deepim_tpu_torch.utils.logger import logger
 from deepim_tpu_torch.utils.png import read_png
 
@@ -75,15 +76,17 @@ def compose_frame(obs_rgb, rend_rgb, mask, zoom_obs, zoom_rend) -> np.ndarray:
 
 
 def images_to_video(image_paths: list[str], out_path: str, fps: float = 2.0) -> dict:
-    """Stack PNG files into an AVI (write_avi), each resized to the first
-    one's size.  Other image formats raise: the port reads PNG only (a
-    JPEG decoder is ROADMAP A10)."""
+    """Stack PNG and JPEG files (.png, .jpg, .jpeg: utils/png.py and
+    utils/jpeg.py, where the JAX package reads them with cv2.imread) into an
+    AVI (write_avi), each resized to the first one's size.  Other image
+    formats raise."""
     for p in image_paths:
-        if not p.lower().endswith(".png"):
-            raise ValueError(f"images_to_video reads PNG files; {p!r} is not one "
-                             "(a JPEG decoder is not ported yet, ROADMAP A10)")
+        if not p.lower().endswith((".png", ".jpg", ".jpeg")):
+            raise ValueError(f"images_to_video reads PNG and JPEG files; {p!r} is neither")
 
     def rgb(p):
+        if not p.lower().endswith(".png"):
+            return read_jpeg(p)
         img = read_png(p)
         if img.dtype != np.uint8:
             raise ValueError(f"{p}: an 8-bit image is needed, got {img.dtype}")

@@ -31,6 +31,7 @@ from deepim_tpu_torch.engine.refine import EngineConfig
 from deepim_tpu_torch.engine.tester import bank_on_device
 from deepim_tpu_torch.engine.train import TrainState, make_optimizer, make_train_step
 from deepim_tpu_torch.models.flownet import FlowNetDeepIM
+from deepim_tpu_torch.models.import_mxnet import state_dict_from_mxnet
 from deepim_tpu_torch.parallel import (
     find_unused_parameters,
     initialize_distributed,
@@ -39,7 +40,9 @@ from deepim_tpu_torch.parallel import (
     train_step_dp,
 )
 from deepim_tpu_torch.render.mesh import MeshBank, load_textured_mesh
+from deepim_tpu_torch.tools.convert_mxnet_checkpoint import load_npz_state_dict
 from deepim_tpu_torch.utils.logger import create_logger, logger, run_directory
+from deepim_tpu_torch.utils.mxnet_io import load_mxnet_params
 from deepim_tpu_torch.utils.speedometer import Speedometer
 from deepim_tpu_torch.utils.tb import TBLogger
 from deepim_tpu_torch.utils.visualize import visualize_masks, visualize_pair_grid
@@ -99,21 +102,44 @@ def input_channels(cfg: Config) -> int:
 
 
 def init_pretrained(cfg: Config, model: FlowNetDeepIM) -> None:
-    """Initialise `model` from network.pretrained (an MXNet FlowNet
-    checkpoint or its .npz import in the JAX package).  Reading those is the
-    MXNet import of ROADMAP A10, not ported yet, so this raises rather than
-    train from the seeded weights the config did not ask for."""
-    raise NotImplementedError(
-        f"network.pretrained={cfg.network.pretrained!r}: importing pretrained FlowNet weights (MXNet "
-        "checkpoints) is not ported yet (ROADMAP A10); set network.pretrained to \"\" or "
-        "network.skip_initialize to true to train from the seeded initial weights")
+    """Load network.pretrained into `model` (deepim/train.py:165-195: the
+    reference fine-tunes a pretrained FlowNet), as the JAX package's
+    init_pretrained: a path without a .npz or .params suffix is the
+    reference's <prefix>-%04d.params of network.pretrained_epoch (also at
+    epoch 0 when the bare path is no file); a .npz is the JAX converter's
+    flax tree or this port's converter output, holding every layer of the
+    model; a .params file is imported on the fly (state_dict_from_mxnet at
+    cfg's resolution), where with network.init_from_flownet the layers a
+    vanilla FlowNet lacks (the fc/rot/trans and mask heads) keep the
+    model's seeded initialisation and without it every layer must be
+    present.  The weights load into the model's parameters in place, on
+    its device."""
+    path = cfg.network.pretrained
+    if not path.endswith((".npz", ".params")) and (cfg.network.pretrained_epoch or not os.path.isfile(path)):
+        path = f"{path}-{cfg.network.pretrained_epoch:04d}.params"
+    if path.endswith(".npz"):
+        loaded = load_npz_state_dict(path)
+        own = model.state_dict()
+        for key, value in own.items():
+            if key not in loaded:
+                raise KeyError(f"pretrained npz {path} is missing {key}")
+            if loaded[key].shape != value.shape:
+                raise ValueError(f"{key}: npz shape {tuple(loaded[key].shape)} != model {tuple(value.shape)}")
+        state = {k: loaded[k] for k in own}
+    else:
+        state = state_dict_from_mxnet(load_mxnet_params(path), model, input_hw=(cfg.height, cfg.width),
+                                      strict=not cfg.network.init_from_flownet)
+    model.load_state_dict(state)
+    logger.info("initialized from pretrained weights %s", path)
 
 
 def train_net(cfg: Config, output_dir: str | None = None, device="cuda",
               init_state_dict: dict | None = None) -> TrainState:
     """Train cfg's network from TRAIN.begin_epoch to TRAIN.end_epoch and
     return the final state (its model on `device`).  The weights start from
-    `init_state_dict` when given, else from build_model's seeded draw; with
+    `init_state_dict` when given, else from network.pretrained
+    (init_pretrained, unless network.skip_initialize) loaded over
+    build_model's seeded draw, before DDP wraps the model; with
     TRAIN.RESUME and begin_epoch > 0 the state of that epoch's checkpoint
     replaces them.  Checkpoints go to <output_dir>/<model_prefix>_ckpt/.
 

@@ -171,8 +171,9 @@ def test_sample_model_points_equal():
 
 def test_voc_backgrounds_list(devkit, tmp_path):
     """The VOC list is read as the JAX class reads it; only label-1 ids
-    count, so a list without them is a no-op.  A non-empty list raises (the
-    port has no JPEG decoder), also through make_train_sample's data_syn
+    count, so a list without them is a no-op.  A listed id whose JPEG is
+    missing leaves the image as the JAX package's cv2.imread -> None does,
+    after the same draw, also through make_train_sample's data_syn
     branch."""
     main = tmp_path / "VOCdevkit" / "VOC2012" / "ImageSets" / "Main"
     main.mkdir(parents=True)
@@ -183,14 +184,18 @@ def test_voc_backgrounds_list(devkit, tmp_path):
     assert voc.replace_background(im, np.ones((4, 4), np.float32), random.Random(0)) is im
     (main / "diningtable_trainval.txt").write_text("2008_000001 1\n2008_000002 -1\n2008_000003 1\n")
     voc = t_pre.VOCBackgrounds(str(tmp_path))
-    assert voc.bg_list == j_pre.VOCBackgrounds(str(tmp_path)).bg_list == ["2008_000001", "2008_000003"]
-    with pytest.raises(NotImplementedError, match="JPEG decoder"):
-        voc.replace_background(im, np.ones((4, 4), np.float32), random.Random(0))
-    jc, tc = _cfgs(devkit)
+    j_voc = j_pre.VOCBackgrounds(str(tmp_path))
+    assert voc.bg_list == j_voc.bg_list == ["2008_000001", "2008_000003"]
+    rng, j_rng = random.Random(0), random.Random(0)
+    assert voc.replace_background(im, np.ones((4, 4), np.float32), rng) is im
+    assert j_voc.replace_background(im, np.ones((4, 4), np.float32), j_rng) is im
+    assert rng.random() == j_rng.random()
+    jc, tc = _cfgs(devkit, {"MASK_DILATE": True})
     _, t_recs, points = _pairdbs(jc, tc)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        t_pre.make_train_sample(t_recs[-1], tc, points["sphere"], random.Random(0), np.random.RandomState(0),
-                                voc)
+    assert t_recs[-1]["data_syn"]
+    a = j_pre.make_train_sample(t_recs[-1], jc, points["sphere"], random.Random(0), np.random.RandomState(0), j_voc)
+    b = t_pre.make_train_sample(t_recs[-1], tc, points["sphere"], random.Random(0), np.random.RandomState(0), voc)
+    _assert_sample_equal(a, b)
 
 
 def test_decode_cache_shared_by_threads():
@@ -490,8 +495,9 @@ def test_front_doors(devkit, tmp_path, entry, own_log_files):
 
 
 def test_pretrained_raises(devkit, tmp_path):
-    """A set network.pretrained raises (the MXNet import is not ported)
-    instead of training from the seeded weights."""
-    _, tc = _cfgs(devkit, network={"pretrained": "./model/pretrained_model/flownet"})
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    """A network.pretrained that names no file raises (the reference's
+    <prefix>-0000.params is looked for, as the reference's load_param
+    reads it) instead of training from the seeded weights."""
+    _, tc = _cfgs(devkit, network={"pretrained": str(tmp_path / "flownet")})
+    with pytest.raises(FileNotFoundError, match="flownet-0000.params"):
         t_train_net.train_net(tc, output_dir=str(tmp_path), device="cpu")
