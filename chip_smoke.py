@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 14   # phase 1 and phase 14 (the benchmark runners) alone
     python3 chip_smoke.py --phases 15   # phase 1 and phase 15 (the data-preparation toolkit) alone
     python3 chip_smoke.py --phases 16   # phase 1 and phase 16 (the recipe from pretrained weights) alone
+    python3 chip_smoke.py --phases 17   # phase 1 and phase 17 (flow2se3, pose metrics, the module tail) alone
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device and build: the card's name and power limit, torch's CUDA
@@ -264,6 +265,24 @@ Phases (each raises on failure; the script then exits non-zero):
      at the recipe's render.  It prints init_pretrained's ms, read_jpeg's
      ms a background, s a step and samples/s, whether the native
      mesh/points reader loaded and its parse ms.
+ 17. the module tail, under deepim_tpu_torch/_build/phase17/: (A) 8
+     frames of make_mixed_detail_mesh (20,880 faces) at LINEMOD K, targets
+     B at LINEMOD depths, sources A perturbed from them as synth_data
+     perturbs; both rendered with render_at_pose (csr_raster launched
+     exactly twice, nothing else, and bit-equal to its twin at B's render),
+     flow_from_depth on the card, then flow2se3 (numpy PnP-RANSAC) on the
+     host a frame on the flow's valid pixels: each recovered transform
+     within 0.5 deg and 5 mm of se3_mul(B, se3_inverse(A)); (B) add, adi,
+     re, te and arp_2d of 256 seeded pose pairs on the mesh's vertices on
+     the card, held to the CPU's float32 run (rtol 1e-5; adi's on the first
+     16 pairs) and to the evaluator's float64 host functions (rtol 1e-4; re
+     also atol 1e-3 deg); (C) mask_dilate_random of 16 of (A)'s masks on
+     the card equal to the CPU's from one seed; (D) the three visibility
+     masks of (A)'s depths equal on the card and the CPU; (E)
+     visualize_minibatch of (A)'s renders and flow read back as a
+     (960, 1920, 3) PNG.  It prints flow2se3's ms a frame, valid points and
+     inliers, each metric's card ms against the evaluator's host ms, the
+     dilation's ms and the PNG's seconds and bytes.
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -308,7 +327,13 @@ from deepim_tpu_torch.engine.refine import refine_step, render_at_pose, tune_ras
 from deepim_tpu_torch.engine.tester import bank_on_device, pred_eval  # noqa: E402
 from deepim_tpu_torch.engine.scene import LINEMOD_K, build_scene, train_batch  # noqa: E402
 from deepim_tpu_torch.models.flownet import _ENCODER, FlowNetDeepIM, conv_out  # noqa: E402
-from deepim_tpu_torch.ops.masks import box_fill  # noqa: E402
+from deepim_tpu_torch.eval import evaluator  # noqa: E402
+from deepim_tpu_torch.geometry import pose_metrics  # noqa: E402
+from deepim_tpu_torch.geometry.rotations import mat2quat  # noqa: E402
+from deepim_tpu_torch.geometry.se3 import se3_inverse, se3_mul  # noqa: E402
+from deepim_tpu_torch.ops.flow import flow_from_depth  # noqa: E402
+from deepim_tpu_torch.ops.flow2se3 import flow2se3, flow_correspondences, pnp_ransac  # noqa: E402
+from deepim_tpu_torch.ops.masks import box_fill, mask_dilate_random  # noqa: E402
 from deepim_tpu_torch.render import raster_kernels as rk  # noqa: E402
 from deepim_tpu_torch.render.lighting import lit_vertex_colors  # noqa: E402
 from deepim_tpu_torch.render.mesh import MeshBank, make_icosphere, make_mixed_detail_mesh, make_test_cube  # noqa: E402
@@ -317,7 +342,7 @@ from deepim_tpu_torch.render.rasterizer import KERNELS, RasterConfig, kernel_inp
 from deepim_tpu_torch.render.rasterizer import texture_gather  # noqa: E402
 from deepim_tpu_torch.render.stress import stress_tile_list, stress_work_list  # noqa: E402
 from deepim_tpu_torch.toolkit._common import DEFAULT_K as TK_K  # noqa: E402
-from deepim_tpu_torch.tools.synth_data import generate_dataset  # noqa: E402
+from deepim_tpu_torch.tools.synth_data import generate_dataset, sample_perturbed_pose  # noqa: E402
 from deepim_tpu_torch.tools import test_net as test_net_mod  # noqa: E402
 from deepim_tpu_torch.tools import train_net as train_net_mod  # noqa: E402
 from deepim_tpu_torch.tools.test_net import test_deepim  # noqa: E402
@@ -325,6 +350,9 @@ from deepim_tpu_torch.tools.timing import graph_launch_ms  # noqa: E402
 from deepim_tpu_torch.tools.train_net import build_mesh_bank, build_model, train_net  # noqa: E402
 from deepim_tpu_torch.utils.png import read_png, write_png  # noqa: E402
 from deepim_tpu_torch.utils.tb import TBLogger  # noqa: E402
+from deepim_tpu_torch.utils.visibility import estimate_visib_mask, estimate_visib_mask_est  # noqa: E402
+from deepim_tpu_torch.utils.visibility import estimate_visib_mask_gt  # noqa: E402
+from deepim_tpu_torch.utils.visualize import visualize_minibatch  # noqa: E402
 
 H, W = 480, 640
 N_CALLS = 5
@@ -3909,7 +3937,207 @@ def drive_recipe(dev, card: str) -> dict:
     return {"csr_raster": {"recipe": kernel}}
 
 
-ALL_PHASES = set(range(1, 17))
+# Phase 17: the module tail at full width (files under a gitignored directory).
+PHASE17_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase17")
+SE3_B = 8             # frames of (A): make_mixed_detail_mesh posed at LINEMOD depths
+SE3_SEED = 17
+SE3_ROT_DEG = 0.5     # (A): recovered relative rotation against the truth
+SE3_TRANS_M = 5e-3    # and translation
+METRIC_PAIRS = 256    # (B): pose pairs on the mesh's vertices
+METRIC_CPU_ADI = 16   # (B): of them, the pairs whose adi is also run on the CPU (O(N^2) a pair)
+METRIC_CPU_RTOL = 1e-5
+METRIC_HOST_RTOL = 1e-4
+METRIC_RE_ATOL = 1e-3  # degrees: float32's arccos resolves no finer near 0
+DILATE_B = 16         # (C): masks a call
+VISIB_DELTA = 0.015   # (D): metres, the BOP toolkit's default
+
+
+def se3_poses(n: int, rng) -> tuple:
+    """n target poses B (uniform rotations, x and y within 5 cm, z 0.6-1.0
+    m, LINEMOD's range) and their sources A, perturbed as synth_data
+    perturbs an initial pose; float32 (n, 3, 4) each."""
+    from scipy.spatial.transform import Rotation
+
+    rot = Rotation.random(n, random_state=rng).as_matrix()
+    t = np.stack([rng.uniform(-0.05, 0.05, n), rng.uniform(-0.05, 0.05, n), rng.uniform(0.6, 1.0, n)], 1)
+    pose_b = np.concatenate([rot, t[:, :, None]], 2).astype(np.float32)
+    pose_a = np.stack([sample_perturbed_pose(p, rng) for p in pose_b]).astype(np.float32)
+    return pose_a, pose_b
+
+
+def quat_deg(q1: np.ndarray, q2: np.ndarray) -> float:
+    return float(np.degrees(2 * np.arccos(min(abs(float(np.dot(q1, q2))), 1.0))))
+
+
+def drive_flow2se3(dev, card: str) -> tuple:
+    """Phase 17A: renders at A and B, flow on the card, flow2se3 on the
+    host a frame.  Returns (csr_raster's check at B's render with the
+    launches, the renders and flow on the host)."""
+    label = "flow2se3"
+    rng = np.random.RandomState(SE3_SEED)
+    mesh = make_mixed_detail_mesh(0)
+    bank = MeshBank.from_meshes([mesh]).arrays()
+    ecfg = EngineConfig(height=H, width=W, raster=RasterConfig(height=H, width=W))
+    ecfg = tune_raster_for_bank(ecfg, bank, LINEMOD_K)
+    m = MeshBuffers.gather(bank, np.zeros(SE3_B, np.int64), device=dev)
+    k = torch.from_numpy(LINEMOD_K).to(dev)
+    pose_a, pose_b = (torch.from_numpy(p).to(dev) for p in se3_poses(SE3_B, rng))
+    plans = [kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, p, k, ecfg.raster, corners=m.corners,
+                           corner_colors=m.corner_colors, device=dev) for p in (pose_a, pose_b)]
+    if {name for plan in plans for name, _ in plan} != {"csr_raster"}:
+        raise AssertionError(f"{label}: the renders plan {[[n for n, _ in plan] for plan in plans]}")
+    kernel = check_kernel("csr_raster", plans[1][0][1], card, shape=label)
+    ref = PLAIN["csr_raster"](*plans[1][0][1])
+    if not torch.equal(kernel.pop("out"), ref):
+        raise AssertionError(f"{label}: csr_raster differs from its twin at the render of B")
+
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    t0 = time.perf_counter()
+    img_a, depth_a, mask_a = render_at_pose(m, pose_a, k, ecfg, device=dev)
+    img_b, depth_b, mask_b = render_at_pose(m, pose_b, k, ecfg, device=dev)
+    flow, valid = flow_from_depth(depth_a[:, 0], depth_b[:, 0], pose_a, pose_b, k, standard_rep=True)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    counts = launch_counts()
+    expect = len(plans[0]) + len(plans[1])
+    if counts != {"csr_raster": expect, "csr_planes_raster": 0, "tile_raster": 0}:
+        raise AssertionError(f"{label}: launches {counts}, want csr_raster {expect} (two renders) and nothing else")
+
+    host = {"img_a": img_a.cpu().numpy(), "img_b": img_b.cpu().numpy(), "depth_a": depth_a[:, 0].cpu().numpy(),
+            "depth_b": depth_b[:, 0].cpu().numpy(), "flow": flow.cpu().numpy(), "valid": valid.cpu().numpy(),
+            "masks": torch.cat([mask_a, mask_b])[:, 0]}
+    rel = se3_mul(pose_b, se3_inverse(pose_a)).cpu().double()
+    q_true = mat2quat(rel[:, :, :3]).numpy()
+    k64 = LINEMOD_K.astype(np.float64)
+    ms, rows = [], []
+    for j in range(SE3_B):
+        depth, fl, mask = host["depth_a"][j], host["flow"][j].transpose(1, 2, 0), host["valid"][j]
+        t0 = time.perf_counter()
+        ok, se3_q = flow2se3(depth, fl, mask, k64, rng=j)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        obj, img = flow_correspondences(depth, fl, mask, k64)
+        r, t, inliers = pnp_ransac(obj, img, k64, rng=j)
+        rot_err = quat_deg(se3_q[:4], q_true[j])
+        trans_err = float(np.abs(se3_q[4:] - rel[j, :, 3].numpy()).max())
+        rows.append((len(obj), int(inliers.sum()), rot_err, trans_err))
+        if not ok or rot_err > SE3_ROT_DEG or trans_err > SE3_TRANS_M or not np.array_equal(t, se3_q[4:]):
+            raise AssertionError(f"{label}: frame {j}: converged {ok}, rotation {rot_err} deg, translation "
+                                 f"{trans_err} m from se3_mul(B, se3_inverse(A)); {rows[-1][:2]} points, inliers")
+    log(f"[{label}] {SE3_B} frames of make_mixed_detail_mesh ({mesh.num_faces} faces) at {H}x{W}, A perturbed from B "
+        f"as synth_data perturbs: renders and flow_from_depth on the card {render_s:.3f} s, csr_raster launches "
+        f"{counts['csr_raster']} (planned {expect}); flow2se3 on the host "
+        f"{statistics.median(ms):.1f} ms a frame (median; frames {[round(x, 1) for x in ms]}); valid points "
+        f"{[r[0] for r in rows]}, inliers {[r[1] for r in rows]}; worst error against se3_mul(B, se3_inverse(A)) "
+        f"{max(r[2] for r in rows):.2e} deg, {max(r[3] for r in rows) * 1e3:.2e} mm [{card}]")
+    kernel["launches"] = counts["csr_raster"]
+    return kernel, host
+
+
+def drive_pose_metrics(dev, card: str) -> None:
+    """Phase 17B: add, adi, re, te, arp_2d of METRIC_PAIRS pose pairs on the
+    card against the CPU (float32) and the evaluator's float64 functions."""
+    label = "pose metrics"
+    rng = np.random.RandomState(SE3_SEED + 1)
+    pts = make_mixed_detail_mesh(0).vertices.astype(np.float32)
+    est, gt = se3_poses(METRIC_PAIRS, rng)
+    args = {"add": ("r_e", "t_e", "r_g", "t_g", "pts"), "adi": ("r_e", "t_e", "r_g", "t_g", "pts"),
+            "re": ("r_e", "r_g"), "te": ("t_e", "t_g"), "arp_2d": ("r_e", "t_e", "r_g", "t_g", "pts", "k")}
+    inputs = {"r_e": est[:, :, :3], "t_e": est[:, :, 3], "r_g": gt[:, :, :3], "t_g": gt[:, :, 3], "pts": pts,
+              "k": LINEMOD_K}
+    on = {d: {n: torch.from_numpy(np.ascontiguousarray(v)).to(d) for n, v in inputs.items()} for d in (dev, "cpu")}
+
+    def call(name, d, sl=slice(None)):
+        return getattr(pose_metrics, name)(*(on[d][a][sl] if a not in ("pts", "k") else on[d][a]
+                                             for a in args[name]))
+
+    card_out = {name: call(name, dev) for name in args}
+    card_ms = {name: cuda_ms(lambda name=name: call(name, dev), reps=3, warmup=1) for name in args}
+    p64, e64, g64 = pts.astype(np.float64), est.astype(np.float64), gt.astype(np.float64)
+    host_fns = {"add": lambda: evaluator._add_errors(e64, g64, p64),
+                "adi": lambda: evaluator._adi_errors(e64, g64, p64),
+                "re": lambda: evaluator._rot_trans_errors(e64, g64)[0],
+                "te": lambda: evaluator._rot_trans_errors(e64, g64)[1],
+                "arp_2d": lambda: evaluator._arp2d_errors(e64, g64, p64, LINEMOD_K.astype(np.float64))}
+    host_ms, report = {}, []
+    for name in args:
+        t0 = time.perf_counter()
+        host = host_fns[name]()
+        host_ms[name] = (time.perf_counter() - t0) * 1e3
+        got = card_out[name].cpu().numpy()
+        sl = slice(0, METRIC_CPU_ADI) if name == "adi" else slice(None)
+        cpu = call(name, "cpu", sl).numpy()
+        cpu_err = float(np.max(np.abs(got[sl] - cpu) / np.abs(cpu)))
+        host_err = float(np.max(np.abs(got - host) / np.abs(host)))
+        atol = METRIC_RE_ATOL if name == "re" else 0.0
+        if not (np.isfinite(got).all() and np.allclose(got[sl], cpu, rtol=METRIC_CPU_RTOL, atol=atol)
+                and np.allclose(got, host, rtol=METRIC_HOST_RTOL, atol=atol)):
+            raise AssertionError(f"{label}: {name} on the card against the CPU {cpu_err:.3g}, against the "
+                                 f"evaluator {host_err:.3g} (relative)")
+        report.append(f"{name} {card_ms[name]:.3f} ms on the card vs {host_ms[name]:.1f} ms evaluator (rel. err "
+                      f"CPU {cpu_err:.1e}, evaluator {host_err:.1e})")
+    log(f"[{label}] {METRIC_PAIRS} pairs, {len(pts)} model points (adi's CPU run on the first {METRIC_CPU_ADI}): "
+        + "; ".join(report) + f" [{card}]")
+
+
+def drive_tail_utils(dev, card: str, host: dict) -> None:
+    """Phase 17C-E: mask_dilate_random, the visibility masks and
+    visualize_minibatch on (A)'s renders."""
+    masks = host["masks"][:DILATE_B].float()
+    out = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        out[d] = mask_dilate_random(masks.to(d), torch.Generator().manual_seed(SE3_SEED))
+        if d != "cpu":
+            torch.cuda.synchronize()
+        out[d, "ms"] = (time.perf_counter() - t0) * 1e3
+    card_ms = cuda_ms(lambda: mask_dilate_random(masks.to(dev), torch.Generator().manual_seed(SE3_SEED)), reps=5)
+    grown = int((out["cpu"] > masks.cpu()).sum())
+    if not torch.equal(out[dev].cpu(), out["cpu"]) or not grown:
+        raise AssertionError(f"mask_dilate_random: card and CPU differ in {int((out[dev].cpu() != out['cpu']).sum())} "
+                             f"px ({grown} px grown)")
+    log(f"[mask dilation] mask_dilate_random on {DILATE_B} masks of {H}x{W}: card equals CPU from one seed, "
+        f"{grown} px grown; {card_ms:.3f} ms a call on the card (first call {out[dev, 'ms']:.1f} ms), "
+        f"{out['cpu', 'ms']:.1f} ms on the CPU [{card}]")
+
+    d_test, d_est = (torch.from_numpy(host[n]) for n in ("depth_b", "depth_a"))
+    visib = {}
+    for d in (dev, "cpu"):
+        gt = estimate_visib_mask_gt(d_test.to(d), d_test.to(d), VISIB_DELTA)
+        visib[d] = (estimate_visib_mask(d_test.to(d), d_est.to(d), VISIB_DELTA), gt,
+                    estimate_visib_mask_est(d_test.to(d), d_est.to(d), gt, VISIB_DELTA))
+    if any(not torch.equal(a.cpu(), b) for a, b in zip(visib[dev], visib["cpu"])):
+        raise AssertionError("visibility masks: card and CPU differ")
+    log(f"[visibility] estimate_visib_mask, _gt, _est on (A)'s depths (test = B's render, est = A's, delta "
+        f"{VISIB_DELTA} m): card equals CPU; visible px {[int(v.sum()) for v in visib['cpu']]} [{card}]")
+
+    path = os.path.join(PHASE17_DIR, "minibatch.png")
+    t0 = time.perf_counter()
+    visualize_minibatch(path, {"rendered": host["img_a"], "observed": host["img_b"]}, flow=host["flow"])
+    vis_s = time.perf_counter() - t0
+    shape = read_png(path).shape
+    if shape != (2 * H, 3 * W, 3):
+        raise AssertionError(f"visualize_minibatch wrote a {shape} grid")
+    log(f"[visualize_minibatch] {shape} grid (rendered | observed | flow, 2 samples) in {vis_s:.3f} s, "
+        f"{os.path.getsize(path)} bytes of PNG [{card}]")
+
+
+def drive_phase17(dev, card: str) -> dict:
+    """Phase 17 (see the module docstring).  Returns csr_raster's check at
+    (A)'s render of B with its launches (flow2se3_ keys); (B)-(E) launch
+    no raster kernel."""
+    shutil.rmtree(PHASE17_DIR, ignore_errors=True)
+    os.makedirs(PHASE17_DIR)
+    kernel, host = drive_flow2se3(dev, card)
+    before = launch_counts()
+    drive_pose_metrics(dev, card)
+    drive_tail_utils(dev, card, host)
+    if launch_counts() != before:
+        raise AssertionError(f"phase 17 (B)-(E) launched raster kernels: {before} -> {launch_counts()}")
+    return {"csr_raster": {"flow2se3": kernel}}
+
+
+ALL_PHASES = set(range(1, 18))
 KERNEL_PHASES = set(range(2, 7))  # phase 2's scenes carry phases 3-6: they run together
 
 
@@ -3934,7 +4162,7 @@ def main(argv: list | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke run of deepim_tpu_torch")
-    ap.add_argument("--phases", default="1-16", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
+    ap.add_argument("--phases", default="1-17", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
                     "always runs, 2-6 run together, 11 needs 8)")
     ap.add_argument("--dp-rank", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 12
     args = ap.parse_args(argv)
@@ -4099,6 +4327,12 @@ def main(argv: list | None = None) -> int:
         for name, runs in drive_recipe(dev, card).items():
             extras.setdefault(name, {}).update(runs)
         log(f"[phase 16] took {time.perf_counter() - t16:.1f} s [{card}]")
+    if 17 in phases:
+        # 17. The module tail: flow2se3, pose metrics, mask dilation, visibility, visualize_minibatch.
+        t17 = time.perf_counter()
+        for name, runs in drive_phase17(dev, card).items():
+            extras.setdefault(name, {}).update(runs)
+        log(f"[phase 17] took {time.perf_counter() - t17:.1f} s [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
@@ -4116,7 +4350,8 @@ def main(argv: list | None = None) -> int:
     # at phase 15's toolkit renders (toolkit_, toolkit_lit_ keys: its
     # class's first unlit and lit batch; its launches within BatchRenderer
     # over the toolkit's stages, unlit and lit as counted there), and
-    # csr_raster at phase 16's recipe render (recipe_ keys).  Without
+    # csr_raster at phase 16's recipe render (recipe_ keys) and at phase
+    # 17's render of the flow2se3 targets (flow2se3_ keys).  Without
     # phase 2, the first
     # later figures of a kernel are its own.
     base = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")

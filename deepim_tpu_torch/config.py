@@ -59,7 +59,7 @@ class DatasetConfig:
     ZNEAR: float = 0.25
     ZFAR: float = 6.0
     NUM_CLASSES: int = 1
-    # Per-fragment texture sampling in the render (not ported yet).
+    # Per-fragment texture sampling in the render (render/rasterizer.py:texture_gather).
     TEXTURE_SAMPLING: bool = False
     class_name_file: str = ""
     class_name: tuple[str, ...] = ()

@@ -1,9 +1,12 @@
 """Checkpoints: one file per epoch, <prefix>_ckpt/<epoch>, holding the
 model's state_dict, the optimizer's state and the step (the naming of
 deepim_tpu/engine/checkpoint.py, written with torch.save instead of
-orbax).  Files are read with torch.load(weights_only=True).  The JAX
-package's orbax checkpoints (a directory per epoch) are not read yet
-(ROADMAP A10).
+orbax).  Files are read with torch.load(weights_only=True).  A JAX
+package's orbax checkpoint (a directory per epoch) is converted into one
+on a host with JAX:
+
+    python experiments/convert_orbax_checkpoint.py --cfg <yaml> --prefix <jax prefix> \
+        --epoch N --out-prefix <port prefix>
 """
 from __future__ import annotations
 
@@ -47,8 +50,9 @@ def read_checkpoint(prefix: str, epoch: int) -> dict:
     the CPU."""
     path = checkpoint_path(prefix, epoch)
     if os.path.isdir(path):
-        raise NotImplementedError(f"{path} is a directory (an orbax checkpoint of the JAX package); "
-                                  "reading those is not ported yet (ROADMAP A10)")
+        raise RuntimeError(f"{path} is a directory (an orbax checkpoint of the JAX package); convert it on a "
+                           "host with JAX: python experiments/convert_orbax_checkpoint.py --cfg <yaml> --prefix "
+                           f"<its prefix> --epoch {epoch} --out-prefix <another prefix>")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

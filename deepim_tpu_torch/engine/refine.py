@@ -131,7 +131,8 @@ _ZOOM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _check_supported(ecfg: EngineConfig) -> None:
     if ecfg.update_mask not in _MASK_STRATEGIES:
-        raise NotImplementedError(f"update_mask={ecfg.update_mask!r} is not ported yet")
+        raise NotImplementedError(f"update_mask={ecfg.update_mask!r} is no mask strategy of the port's "
+                                  f"(one of {_MASK_STRATEGIES})")
     if ecfg.zoom_dtype not in _ZOOM_DTYPES:
         raise ValueError(f"zoom_dtype must be one of {sorted(_ZOOM_DTYPES)}, got {ecfg.zoom_dtype!r}")
 

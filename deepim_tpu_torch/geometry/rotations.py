@@ -86,3 +86,65 @@ def euler2mat(ai: torch.Tensor, aj: torch.Tensor, ak: torch.Tensor) -> torch.Ten
         ],
         dim=-1,
     ).reshape(si.shape + (3, 3))
+
+
+def qmult(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q1 q2, sign-normalized to w >= 0."""
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    q = torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 + y1 * w2 + z1 * x2 - x1 * z2,
+            w1 * z2 + z1 * w2 + x1 * y2 - y1 * x2,
+        ],
+        dim=-1,
+    )
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_inverse(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion inverse, conj(q) / |q|^2 with |q|^2 floored at 1e-12."""
+    nq = torch.sum(q * q, dim=-1, keepdim=True)
+    conj = q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+    return conj / torch.clamp(nq, min=_EPS)
+
+
+def mat2euler(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rotation matrices -> Euler 'sxyz' angles (ai, aj, ak), branchless: at
+    gimbal lock (cy <= 4 eps of the dtype) ai takes the degenerate formula
+    and ak is 0."""
+    cy = torch.sqrt(m[..., 0, 0] ** 2 + m[..., 1, 0] ** 2)
+    regular = cy > 4.0 * torch.finfo(m.dtype).eps
+    ax = torch.where(regular, torch.atan2(m[..., 2, 1], m[..., 2, 2]), torch.atan2(-m[..., 1, 2], m[..., 1, 1]))
+    ay = torch.atan2(-m[..., 2, 0], cy)
+    az = torch.where(regular, torch.atan2(m[..., 1, 0], m[..., 0, 0]), torch.zeros_like(cy))
+    return ax, ay, az
+
+
+def rot_geodesic_deg(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle between rotations in degrees, arccos((tr(R1^T R2) - 1)
+    / 2) with the cosine clipped to [-1, 1].  (..., 3, 3) x (..., 3, 3) ->
+    (...,)."""
+    if r1.dtype == torch.float32:
+        # Each diagonal entry of R1^T R2 rounded as XLA's CPU compiler
+        # rounds the JAX package's float32 3x3 product: fma(a2, b2, fma(a1,
+        # b1, a0 b0)).  arccos's slope turns one ulp of the cosine into
+        # 1e-5 deg at a few degrees; so the port and the JAX package agree.
+        # A float32 product is exact in float64, so the float64 sum rounded
+        # to float32 is the FMA's result.
+        a, b = r1.double(), r2.double()
+        diag = (r1[..., 0, :] * r2[..., 0, :]).double()
+        diag = (a[..., 1, :] * b[..., 1, :] + diag).float().double()
+        diag = (a[..., 2, :] * b[..., 2, :] + diag).float()
+    else:
+        diag = torch.einsum("...ji,...ji->...i", r1, r2)
+    tr = diag[..., 0] + diag[..., 1] + diag[..., 2]
+    return torch.rad2deg(torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)))
+
+
+def quat_angle_deg(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Angle between unit quaternions in degrees, arccos(2 (q1.q2)^2 - 1)."""
+    d = torch.sum(q1 * q2, dim=-1)
+    return torch.rad2deg(torch.arccos(torch.clamp(2.0 * d * d - 1.0, -1.0, 1.0)))

@@ -395,7 +395,7 @@ def _plan(faces, face_valid, poses, kb, corners, corner_colors, cfg) -> _Plan:
     use_csr = uses_csr(cfg, nf)
     if use_csr:
         if cfg.csr_kernel not in _CSR_KERNELS:
-            raise NotImplementedError(f"csr_kernel={cfg.csr_kernel!r} is not ported "
+            raise NotImplementedError(f"csr_kernel={cfg.csr_kernel!r} is no CSR kernel of the port's "
                                       f"(only {sorted(_CSR_KERNELS)})")
         th, tw = cfg.csr_tile_h, cfg.csr_tile_w
         if th * tw != 128:

@@ -1,7 +1,7 @@
 """Training-batch visualizers for TRAIN.VISUALIZE (counterpart of
-deepim_tpu/utils/visualize.py's save_grid, visualize_pair_grid and
-visualize_masks; the reference's SimpleVisualize and MaskVisualize
-metrics, deepim/core/metric.py:140-486, as PNG grids).  Grids are written
+deepim_tpu/utils/visualize.py; the reference's SimpleVisualize,
+MaskVisualize and MinibatchVisualize metrics, deepim/core/metric.py:140-486,
+as PNG grids).  Grids are written
 in RGB through utils/png.py."""
 from __future__ import annotations
 
@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 
+from deepim_tpu_torch.utils.flow_vis import flow_to_color
 from deepim_tpu_torch.utils.png import write_png
 
 
@@ -64,5 +65,23 @@ def visualize_masks(out_path: str, mask_observed: np.ndarray, mask_rendered: np.
         row = [mask_observed[j], mask_rendered[j]]
         if mask_gt is not None:
             row.append(mask_gt[j])
+        rows.append(row)
+    save_grid(out_path, rows)
+
+
+def visualize_minibatch(out_path: str, batch_images: dict[str, np.ndarray], flow: np.ndarray | None = None,
+                        max_samples: int = 2) -> None:
+    """Per sample: each of batch_images' (B, C, H, W) or (B, H, W, C) panels,
+    then the flow ((B, 2, H, W) or (B, H, W, 2), in (dw, dh)) in the Sintel
+    colour wheel."""
+    rows = []
+    n = min(next(iter(batch_images.values())).shape[0], max_samples)
+    for j in range(n):
+        row = [v[j] for v in batch_images.values()]
+        if flow is not None:
+            f = np.asarray(flow[j])
+            if f.shape[0] == 2:
+                f = f.transpose(1, 2, 0)
+            row.append(flow_to_color(f))
         rows.append(row)
     save_grid(out_path, rows)

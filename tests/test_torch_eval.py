@@ -407,10 +407,10 @@ def test_vis_video_writes_videos(devkit, weights, tmp_path):
 
 def test_unported_options_raise(devkit, tmp_path):
     """A checkpoint that is a directory (the JAX package's orbax format)
-    raises: reading those is not ported."""
+    raises, naming the converter that turns it into the port's file."""
     _, tc = _cfgs(devkit)
     os.makedirs(tmp_path / f"{PREFIX}_ckpt" / str(TEST_EPOCH))
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(RuntimeError, match="orbax.*experiments/convert_orbax_checkpoint.py"):
         t_test_deepim(tc, output_dir=str(tmp_path), device="cpu")
 
 
