@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 15   # phase 1 and phase 15 (the data-preparation toolkit) alone
     python3 chip_smoke.py --phases 16   # phase 1 and phase 16 (the recipe from pretrained weights) alone
     python3 chip_smoke.py --phases 17   # phase 1 and phase 17 (flow2se3, pose metrics, the module tail) alone
+    python3 chip_smoke.py --phases 18   # phase 1 and phase 18 (learned tracking, the tracking fine-tune) alone
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device and build: the card's name and power limit, torch's CUDA
@@ -283,6 +284,21 @@ Phases (each raises on failure; the script then exits non-zero):
      (960, 1920, 3) PNG.  It prints flow2se3's ms a frame, valid points and
      inliers, each metric's card ms against the evaluator's host ms, the
      dilation's ms and the PNG's seconds and bytes.
+ 18. learned closed-loop tracking at 256x256, under
+     deepim_tpu_torch/_build/phase18/: (A) benchmark_multiclass --train-only
+     on 4 benchmark classes (1,280 faces: tile_raster), 8 training pairs a
+     class, batch 32, 2 epochs at TRAIN_ITER_SIZE 2; (B) track_finetune from
+     its epoch-2 checkpoint: the noise-mix devkit (8 training and 16 test
+     pairs a class), the seed copy, one epoch; (C) track_learned from the
+     fine-tuned checkpoint: 4 videos, 8 frames, 2 iterations a frame after 4
+     lock-on iterations, bf16.  Checked: tile_raster launched exactly as
+     planned in each and nothing else, and bit-equal to its twin at the
+     fine-tune's training render (batch 32) and at the track's render
+     (batch 4); every loss finite, no pair dropped, the fine-tune resumed
+     at epoch 2; the tracked poses finite and orthonormal, every
+     TRACK_JSON number finite.  It prints the TRACK_JSON line, the tracked
+     frames a second, one profiled track's idle share and the noise mix's
+     initial rotation errors.
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -4137,7 +4153,143 @@ def drive_phase17(dev, card: str) -> dict:
     return {"csr_raster": {"flow2se3": kernel}}
 
 
-ALL_PHASES = set(range(1, 18))
+# Phase 18: learned closed-loop tracking (tools/track_learned.py), the
+# tracking fine-tune (tools/track_finetune.py) and its noise-mix devkit,
+# at the 256x256 protocol's width, cut in depth.
+PHASE18_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase18")
+P18_SIZE = 256        # the 256^2 protocol's frame
+P18_CLASSES = 4       # benchmark classes (1,280 faces: tile_raster), and the tracked videos
+P18_PAIRS = 8         # training pairs a class in both devkits (cut from 256)
+P18_BATCH = 32        # the protocol's batch: one step an epoch here (bench_render_check renders as many)
+P18_VAL = 2           # the benchmark devkit's test pairs a class (cut from 32; --train-only tests none)
+P18_FT_VAL = 16       # track_finetune's test pairs a class (its generate_dataset call's n_val)
+P18_EPOCHS = 2        # benchmark_multiclass epochs (cut from 60), then one fine-tune epoch (cut from 20)
+P18_FRAMES = 8        # tracked frames (cut from 60)
+P18_ITERS, P18_INIT = 2, 4  # iterations a frame and lock-on iterations (track_learned_r4's second variant)
+
+
+def p18_counted(label: str, fn, expect: int) -> tuple:
+    """fn() with the launch counters zeroed just before and read just
+    after: tile_raster exactly `expect` times and nothing else.  Returns
+    (fn's result, its wall seconds)."""
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != {"csr_raster": 0, "csr_planes_raster": 0, "tile_raster": expect}:
+        raise AssertionError(f"{label}: launches {counts}, want tile_raster {expect} and nothing else")
+    return out, wall
+
+
+def drive_phase18(dev, card: str) -> dict:
+    """Phase 18 (see the module docstring).  Returns tile_raster's checks
+    at the track's render and at the fine-tune's training render, each
+    with its run's launches."""
+    from deepim_tpu_torch.engine.tracker import make_tracker
+    from deepim_tpu_torch.tools import benchmark_multiclass, track_finetune, track_learned
+
+    shutil.rmtree(PHASE18_DIR, ignore_errors=True)
+    devkit = os.path.join(PHASE18_DIR, "bench")
+    c = P18_CLASSES
+    common = ["--size", str(P18_SIZE), "--classes", str(c), "--subdiv", "3", "--device", str(dev)]
+    steps = c * P18_PAIRS // P18_BATCH
+
+    # (A) the benchmark checkpoint the fine-tune and the track start from:
+    # each pair's gt and initial pose rendered once, one render an inner
+    # iteration of a training step.
+    argv = [*common, "--batch", str(P18_BATCH), "--n-train", str(P18_PAIRS), "--n-val", str(P18_VAL), "--epochs",
+            str(P18_EPOCHS),
+            "--train-iter-size", "2", "--lr", "2e-4", "--train-only", "--out", devkit]
+    expect = c * (P18_PAIRS + P18_VAL) * 2 + P18_EPOCHS * steps * 2
+    _, wall = p18_counted("benchmark_multiclass", lambda: benchmark_multiclass.main(argv), expect)
+    log(f"[phase 18 benchmark_multiclass] {' '.join(argv)}: {wall:.3f} s, tile_raster {expect} launches [{card}]")
+
+    # (B) the fine-tune: its noise-mix devkit, the seed copy, one epoch.
+    ft_argv = [*common, "--batch", str(P18_BATCH), "--epochs", str(P18_EPOCHS), "--finetune-epochs", "1",
+               "--n-train", str(P18_PAIRS), "--devkit", devkit]
+    expect_ft = c * (P18_PAIRS + P18_FT_VAL) * 2 + steps * 2
+    state, wall = p18_counted("track_finetune", lambda: track_finetune.main(ft_argv), expect_ft)
+    e = state.epochs[0]
+    if (len(state.epochs) != 1 or e["epoch"] != P18_EPOCHS + 1 or e["nonfinite_losses"] or e["raster_dropped"]
+            or not np.isfinite(e["metrics"]["total"]).all()):
+        raise AssertionError(f"track_finetune: epochs {[x['epoch'] for x in state.epochs]}, want {P18_EPOCHS + 1}; "
+                             f"{e['nonfinite_losses']} non-finite loss values, {e['raster_dropped']} dropped pairs")
+    ft_args = track_finetune.parse_args(ft_argv)
+    ft_devkit = devkit + "_trackft"
+    classes = sorted(benchmark_multiclass.make_benchmark_classes(c, 3))
+    k = benchmark_multiclass.benchmark_k(P18_SIZE, P18_SIZE)
+    ft_cfg = track_finetune.finetune_config(ft_args, ft_devkit, classes, k)
+    rot_deg = []  # the initial poses' rotation errors in the noise-mix devkit
+    for cls in classes:
+        for rec in load_gt_pairdb(ft_cfg, "LM6D_REFINE", "train_" + cls, cls, ft_devkit, ft_devkit)[1]:
+            cos = (np.trace(rec["pose_rendered"][:, :3] @ rec["pose_observed"][:, :3].T) - 1) / 2
+            rot_deg.append(float(np.degrees(np.arccos(np.clip(cos, -1, 1)))))
+    train_check = bench_render_check(ft_cfg, True, "train_", dev, card,
+                                     f"trackft train ({P18_SIZE}x{P18_SIZE}, batch {P18_BATCH})")
+    train_check["launches"] = expect_ft
+    log(f"[phase 18 track_finetune] {' '.join(ft_argv)}: {wall:.3f} s; resumed at epoch {P18_EPOCHS} from the "
+        f"seed copy; epoch {e['epoch']}: {e['samples']} samples, {e['samples'] / e['loop_s']:.2f} samples/s, mean "
+        f"loss {float(e['metrics']['total'].mean()):.4f}; noise-mix devkit: initial rotation error median "
+        f"{np.median(rot_deg):.2f} deg, {np.mean(np.asarray(rot_deg) < 15.0):.2f} of pairs under 15 deg; "
+        f"tile_raster {expect_ft} launches [{card}]")
+
+    # (C) the learned track from the fine-tuned checkpoint: the observed
+    # frames (one render a frame), the lock-on and each frame's iterations.
+    run_dir = os.path.join(ft_devkit, "run")
+    end = P18_EPOCHS + 1
+    tl_argv = [*common, "--track-classes", str(c), "--frames", str(P18_FRAMES), "--epochs", str(end),
+               "--prefix", track_finetune.FT_PREFIX, "--run-dir", run_dir, "--iters-per-frame", str(P18_ITERS),
+               "--init-iters", str(P18_INIT)]
+    expect_t = P18_FRAMES + P18_INIT + P18_FRAMES * P18_ITERS
+    res, wall = p18_counted("track_learned", lambda: track_learned.main(tl_argv), expect_t)
+    summary, run = res["summary"], res["run"]
+    numbers = [summary["mean_add_over_d"]] + [v for r in summary["per_class"] for v in r.values()
+                                               if not isinstance(v, str)]
+    poses = res["poses_est"]
+    r = poses[..., :3]
+    orth = float(np.abs(r @ np.swapaxes(r, -1, -2) - np.eye(3)).max())
+    if (poses.shape != (P18_FRAMES, c, 3, 4) or not np.isfinite(poses).all() or orth > 1e-3
+            or not np.isfinite(numbers).all() or run["raster_dropped"] or len(summary["per_class"]) != c):
+        raise AssertionError(f"track_learned: poses {poses.shape}, orthonormality err {orth}, summary {summary}, "
+                             f"dropped {run['raster_dropped']}")
+    log(f"[phase 18 track_learned] {' '.join(tl_argv)}: {wall:.3f} s; {run['frames_per_s']:.2f} tracked frames/s "
+        f"({c} videos a frame, {run['track_s']:.3f} s for the track), observed renders {run['render_s']:.3f} s; "
+        f"tile_raster {expect_t} launches ({P18_FRAMES} observed + {P18_INIT} lock-on + {P18_FRAMES} x {P18_ITERS}); "
+        f"0 dropped pairs [{card}]")
+
+    # The track's render against its twin, and one track under the profiler.
+    meshes_by_name = benchmark_multiclass.make_benchmark_classes(c, 3)
+    bank = MeshBank.from_meshes([meshes_by_name[cl] for cl in classes]).arrays()
+    m = MeshBuffers.gather(bank, np.arange(c), device=dev)
+    ecfg = track_learned.tracking_engine(P18_SIZE, P18_SIZE, P18_ITERS, bank, k)
+    plan = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(res["poses_gt"][0]),
+                         torch.from_numpy(k), ecfg.raster, corners=m.corners, corner_colors=m.corner_colors,
+                         device=dev)
+    if [name for name, _ in plan] != ["tile_raster"]:
+        raise AssertionError(f"track_learned: a render plans {[name for name, _ in plan]}")
+    track_check = check_kernel("tile_raster", plan[0][1], card,
+                               shape=f"track_learned ({P18_SIZE}x{P18_SIZE}, batch {c})")
+    if track_check["max_abs_err"] != 0.0 or train_check["max_abs_err"] != 0.0:
+        raise AssertionError(f"tile_raster differs from its twin: track {track_check['max_abs_err']}, "
+                             f"fine-tune {train_check['max_abs_err']}")
+    del track_check["out"]
+    track_check["launches"] = expect_t
+    model = track_learned.load_tracking_model(run_dir, track_finetune.FT_PREFIX, end, P18_SIZE, P18_SIZE, device=dev)
+    track = make_tracker(model, ecfg, P18_ITERS, init_iters=P18_INIT, device=dev)
+    frames = torch.from_numpy(res["frames"]).to(dev)
+    args = (m, torch.from_numpy(k).to(dev), torch.from_numpy(res["pose0"]).to(dev))
+    with torch.no_grad():
+        fam = breakdown(f"track_learned {P18_FRAMES} frames", lambda: track(frames, *args), card)
+    log(f"[phase 18 track_learned] one {P18_FRAMES}-frame track ({c} videos, {P18_INIT} lock-on iterations): device "
+        f"busy {fam['busy']:.2f} of {fam['wall']:.2f} ms wall, idle share {1 - fam['busy'] / fam['wall']:.3f}, "
+        f"{fam['wall'] / P18_FRAMES:.2f} ms a frame under the profiler [{card}]")
+    return {"tile_raster": {"track_learned": track_check, "trackft_train": train_check}}
+
+
+ALL_PHASES = set(range(1, 19))
 KERNEL_PHASES = set(range(2, 7))  # phase 2's scenes carry phases 3-6: they run together
 
 
@@ -4162,7 +4314,7 @@ def main(argv: list | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke run of deepim_tpu_torch")
-    ap.add_argument("--phases", default="1-17", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
+    ap.add_argument("--phases", default="1-18", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
                     "always runs, 2-6 run together, 11 needs 8)")
     ap.add_argument("--dp-rank", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 12
     args = ap.parse_args(argv)
@@ -4333,6 +4485,12 @@ def main(argv: list | None = None) -> int:
         for name, runs in drive_phase17(dev, card).items():
             extras.setdefault(name, {}).update(runs)
         log(f"[phase 17] took {time.perf_counter() - t17:.1f} s [{card}]")
+    if 18 in phases:
+        # 18. Learned tracking: a benchmark checkpoint, the tracking fine-tune, track_learned.
+        t18 = time.perf_counter()
+        for name, runs in drive_phase18(dev, card).items():
+            extras.setdefault(name, {}).update(runs)
+        log(f"[phase 18] took {time.perf_counter() - t18:.1f} s [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
@@ -4351,9 +4509,10 @@ def main(argv: list | None = None) -> int:
     # class's first unlit and lit batch; its launches within BatchRenderer
     # over the toolkit's stages, unlit and lit as counted there), and
     # csr_raster at phase 16's recipe render (recipe_ keys) and at phase
-    # 17's render of the flow2se3 targets (flow2se3_ keys).  Without
-    # phase 2, the first
-    # later figures of a kernel are its own.
+    # 17's render of the flow2se3 targets (flow2se3_ keys), and tile_raster
+    # at phase 18's track and fine-tune renders (track_learned_,
+    # trackft_train_ keys).  Without phase 2, the first later figures of a
+    # kernel are its own.
     base = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     for name, run in [("csr_raster", dp)] + [(n, next(iter(r.values()))) for n, r in extras.items()]:
         if run is not None and name not in results:

@@ -11,7 +11,8 @@ writing PNGs with utils/png.py).  The single-object layout:
 The same seed draws the same poses as the JAX generator, and the JAX
 package's PairDB reads the result unchanged.  Initial poses perturb the gt
 pose with per-axis Euler noise N(0, 15 deg) clipped at 45 deg and
-translation noise N(0, (0.01, 0.01, 0.05)) m.  Every PNG row is Sub
+translation noise N(0, (0.01, 0.01, 0.05)) m, or draw from a weighted
+mix of such models (generate_dataset's noise_mix).  Every PNG row is Sub
 filtered, as cv2.imwrite (the JAX generator's writer) filters them, so the
 files decode as the JAX-written devkit's do.  generate_occlusion_dataset
 writes multi-instance scenes instead (--occlusion; its docstring has the
@@ -41,11 +42,15 @@ TRANS_NOISE_STD = (0.01, 0.01, 0.05)
 PNG_FILTER = 1  # Sub
 
 
-def sample_perturbed_pose(pose: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
-    """The gt pose perturbed by the initial-pose noise model."""
-    ang = np.clip(rng.normal(0, ROT_NOISE_STD_DEG, 3), -ROT_NOISE_MAX_DEG, ROT_NOISE_MAX_DEG)
+def sample_perturbed_pose(pose: np.ndarray, rng: np.random.RandomState, rot_std_deg: float = ROT_NOISE_STD_DEG,
+                          rot_max_deg: float = ROT_NOISE_MAX_DEG, trans_std: tuple = TRANS_NOISE_STD) -> np.ndarray:
+    """The gt pose perturbed by per-axis Euler noise N(0, rot_std_deg)
+    clipped at rot_max_deg and translation noise N(0, trans_std) m (the
+    defaults: the initial-pose noise model; smaller ones make the
+    near-convergence pairs of a tracking fine-tune)."""
+    ang = np.clip(rng.normal(0, rot_std_deg, 3), -rot_max_deg, rot_max_deg)
     r_noise = R.from_euler("xyz", ang, degrees=True).as_matrix()
-    t_noise = rng.normal(0, TRANS_NOISE_STD, 3)
+    t_noise = rng.normal(0, trans_std, 3)
     out = pose.copy().astype(np.float32)
     out[:, :3] = r_noise @ pose[:, :3]
     out[:, 3] = pose[:, 3] + t_noise
@@ -93,11 +98,19 @@ def generate_dataset(devkit_path: str, meshes: dict, k: np.ndarray, n_train: int
                      n_val: int = 4, rendered_per_observed: int = 1, height: int = 480,
                      width: int = 640, seed: int = 0, depth_factor: float = 1000.0,
                      z_range: tuple[float, float] = (0.5, 0.9), raster_cfg: RasterConfig | None = None,
-                     device="cuda") -> None:
+                     noise_mix: list | None = None, device="cuda") -> None:
     """Render and write a complete LM6d_refine-layout dataset.  meshes:
-    class name -> render.mesh.Mesh."""
+    class name -> render.mesh.Mesh.
+
+    noise_mix: None (every initial pose drawn from the initial-pose noise
+    model) or a list of (weight, rot_std_deg, rot_max_deg, (tx, ty, tz)
+    std) tuples: each initial pose first draws its model from the
+    normalised weights (rng.choice), then its noise from that model."""
     dev = resolve_device(device)
     rng = np.random.RandomState(seed)
+    if noise_mix:
+        weights = np.array([m[0] for m in noise_mix], np.float64)
+        mix_p = weights / weights.sum()
     cfg = raster_cfg or RasterConfig(height=height, width=width)
     os.makedirs(devkit_path, exist_ok=True)
     classes = sorted(meshes.keys())
@@ -128,7 +141,11 @@ def generate_dataset(devkit_path: str, meshes: dict, k: np.ndarray, n_train: int
 
             for kk in range(rendered_per_observed):
                 ridx = f"{idx}_{kk}"
-                rpose = sample_perturbed_pose(pose, rng)
+                if noise_mix:
+                    _, rsd, rmd, tsd = noise_mix[rng.choice(len(noise_mix), p=mix_p)]
+                    rpose = sample_perturbed_pose(pose, rng, rsd, rmd, tsd)
+                else:
+                    rpose = sample_perturbed_pose(pose, rng)
                 _write_render(os.path.join(rend_dir, ridx), *render(rpose), depth_factor)
                 save_pose_file(os.path.join(rend_dir, f"{ridx}-pose.txt"), rpose)
                 line = f"{cls}/{idx} {cls}/{ridx}"
