@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 16   # phase 1 and phase 16 (the recipe from pretrained weights) alone
     python3 chip_smoke.py --phases 17   # phase 1 and phase 17 (flow2se3, pose metrics, the module tail) alone
     python3 chip_smoke.py --phases 18   # phase 1 and phase 18 (learned tracking, the tracking fine-tune) alone
+    python3 chip_smoke.py --phases 19   # phase 1 and phase 19 (A1's seeded 480x640 run, the learning and resume checks)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device and build: the card's name and power limit, torch's CUDA
@@ -299,6 +300,21 @@ Phases (each raises on failure; the script then exits non-zero):
      TRACK_JSON number finite.  It prints the TRACK_JSON line, the tracked
      frames a second, one profiled track's idle share and the noise mix's
      initial rotation errors.
+ 19. A1's chained protocols and the last harnesses, under
+     deepim_tpu_torch/_build/phase19/: (A) benchmark_multiclass --train-only
+     at 256x256 on 4 benchmark classes, 8 training pairs a class, 1 epoch;
+     (B) a 480x640 run seeded from its epoch 1 (--seed-convs): 8 training
+     and 4 test pairs a class, batch 16, TRAIN_ITER_SIZE 4, 1 epoch, then
+     its test; (C) tools/synthetic_sanity at 128x128, 1 epoch, 32 / 8 pairs
+     a class; (D) tools/params_resume_parity (64x64, its defaults) under
+     torch.use_deterministic_algorithms.  Checked: tile_raster launched
+     exactly as planned in each and nothing else, and bit-equal to its twin
+     at the 480x640 run's batch-16 training and test renders; every tensor
+     train_net was seeded with equal to the base checkpoint's bit for bit
+     but fc6's weight, which equals the fresh draw; every loss finite, no
+     pair dropped, the tables finite; the two continued runs of (D) equal
+     bit for bit and moved from the seed (an op of the path without a
+     deterministic CUDA implementation raises, naming itself).
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -321,6 +337,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+# cuBLAS reads its workspace size once a process, at its first call: phase
+# 19's deterministic run needs this setting from the start.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -2710,14 +2729,14 @@ def bench_argv(devkit: str) -> tuple[list, list]:
                       str(OCC_SCENES), "--finetune-epochs", "1"])
 
 
-def bench_render_check(cfg, train: bool, image_set: str, dev, card: str, shape: str) -> dict:
+def bench_render_check(cfg, train: bool, image_set: str, dev, card: str, shape: str, batch: int = BENCH_BATCH) -> dict:
     """tile_raster against its twin, bit for bit, at one render of a run:
-    a batch of BENCH_BATCH initial poses (as many of each class's pairs in
+    a batch of `batch` initial poses (as many of each class's pairs in
     image_set), the class meshes and the run's raster settings."""
     bank = build_mesh_bank(cfg)
     ecfg = EngineConfig.from_config(cfg, train=train, bank_arrays=bank, device=dev)
     classes = list(cfg.dataset.class_name)
-    per = BENCH_BATCH // len(classes)
+    per = batch // len(classes)
     idx, poses = [], []
     for ci, cls in enumerate(classes):
         _, recs = load_gt_pairdb(cfg, "LM6D_REFINE", image_set + cls, cls, cfg.dataset.root_path,
@@ -4168,7 +4187,7 @@ P18_FRAMES = 8        # tracked frames (cut from 60)
 P18_ITERS, P18_INIT = 2, 4  # iterations a frame and lock-on iterations (track_learned_r4's second variant)
 
 
-def p18_counted(label: str, fn, expect: int) -> tuple:
+def tile_counted(label: str, fn, expect: int) -> tuple:
     """fn() with the launch counters zeroed just before and read just
     after: tile_raster exactly `expect` times and nothing else.  Returns
     (fn's result, its wall seconds)."""
@@ -4204,14 +4223,14 @@ def drive_phase18(dev, card: str) -> dict:
             str(P18_EPOCHS),
             "--train-iter-size", "2", "--lr", "2e-4", "--train-only", "--out", devkit]
     expect = c * (P18_PAIRS + P18_VAL) * 2 + P18_EPOCHS * steps * 2
-    _, wall = p18_counted("benchmark_multiclass", lambda: benchmark_multiclass.main(argv), expect)
+    _, wall = tile_counted("benchmark_multiclass", lambda: benchmark_multiclass.main(argv), expect)
     log(f"[phase 18 benchmark_multiclass] {' '.join(argv)}: {wall:.3f} s, tile_raster {expect} launches [{card}]")
 
     # (B) the fine-tune: its noise-mix devkit, the seed copy, one epoch.
     ft_argv = [*common, "--batch", str(P18_BATCH), "--epochs", str(P18_EPOCHS), "--finetune-epochs", "1",
                "--n-train", str(P18_PAIRS), "--devkit", devkit]
     expect_ft = c * (P18_PAIRS + P18_FT_VAL) * 2 + steps * 2
-    state, wall = p18_counted("track_finetune", lambda: track_finetune.main(ft_argv), expect_ft)
+    state, wall = tile_counted("track_finetune", lambda: track_finetune.main(ft_argv), expect_ft)
     e = state.epochs[0]
     if (len(state.epochs) != 1 or e["epoch"] != P18_EPOCHS + 1 or e["nonfinite_losses"] or e["raster_dropped"]
             or not np.isfinite(e["metrics"]["total"]).all()):
@@ -4244,7 +4263,7 @@ def drive_phase18(dev, card: str) -> dict:
                "--prefix", track_finetune.FT_PREFIX, "--run-dir", run_dir, "--iters-per-frame", str(P18_ITERS),
                "--init-iters", str(P18_INIT)]
     expect_t = P18_FRAMES + P18_INIT + P18_FRAMES * P18_ITERS
-    res, wall = p18_counted("track_learned", lambda: track_learned.main(tl_argv), expect_t)
+    res, wall = tile_counted("track_learned", lambda: track_learned.main(tl_argv), expect_t)
     summary, run = res["summary"], res["run"]
     numbers = [summary["mean_add_over_d"]] + [v for r in summary["per_class"] for v in r.values()
                                                if not isinstance(v, str)]
@@ -4289,12 +4308,130 @@ def drive_phase18(dev, card: str) -> dict:
     return {"tile_raster": {"track_learned": track_check, "trackft_train": train_check}}
 
 
-ALL_PHASES = set(range(1, 19))
+# Phase 19: A1's chained 480x640 run (a 256x256 base seeding a 480x640 run
+# through --seed-convs, as tools/a1_protocol.sh chains them), the learning
+# check and the .params resume check, cut in depth.
+PHASE19_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase19")
+P19_CLASSES = 4       # benchmark classes (1,280 faces: tile_raster)
+P19_BASE_SIZE = 256   # the base's frame
+P19_HW = (480, 640)   # the seeded run's frame
+P19_BASE_PAIRS = 8    # the 256x256 base's training pairs a class (cut from 256): one step of batch 32
+P19_PAIRS = 8         # the 480x640 run's training pairs a class (cut from 128): two steps of batch 16
+P19_VAL = 4           # its test pairs a class (cut from 32): one test batch of 16
+P19_BATCH = 16        # the 480x640 protocol's batch, training and test
+P19_ITER_SIZE = 4     # its TRAIN_ITER_SIZE
+SANITY_SIZE, SANITY_TRAIN, SANITY_VAL = 128, 32, 8  # synthetic_sanity's frame and pairs a class (from 512 / 64)
+PARITY_SIZE, PARITY_TRAIN, PARITY_VAL = 64, 32, 8  # params_resume_parity's defaults: 8 steps of batch 8
+
+
+def drive_phase19(dev, card: str) -> dict:
+    """Phase 19 (see the module docstring).  Returns tile_raster's checks
+    at the 480x640 run's training and test renders, each with the run's
+    launches."""
+    from deepim_tpu_torch.engine.checkpoint import read_checkpoint
+    from deepim_tpu_torch.tools import benchmark_multiclass, params_resume_parity, synthetic_sanity
+
+    shutil.rmtree(PHASE19_DIR, ignore_errors=True)
+    c = P19_CLASSES
+    base, hires = os.path.join(PHASE19_DIR, "base_256"), os.path.join(PHASE19_DIR, "hires_480x640")
+    common = ["--classes", str(c), "--subdiv", "3", "--device", str(dev)]
+
+    # (A) the 256x256 base: each pair's gt and initial pose rendered once,
+    # one render an inner iteration of its one step.
+    argv = [*common, "--size", str(P19_BASE_SIZE), "--batch", "32", "--n-train", str(P19_BASE_PAIRS), "--n-val", "1",
+            "--epochs", "1", "--train-iter-size", "2", "--lr", "2e-4", "--train-only", "--out", base]
+    expect = c * (P19_BASE_PAIRS + 1) * 2 + (c * P19_BASE_PAIRS // 32) * 2
+    _, wall = tile_counted("benchmark_multiclass 256x256 base", lambda: benchmark_multiclass.main(argv), expect)
+    log(f"[phase 19 base] {' '.join(argv)}: {wall:.3f} s, tile_raster {expect} launches [{card}]")
+
+    # (B) the 480x640 run seeded from it, trained and tested; train_net's
+    # initial weights are caught on their way in.
+    seen = {}
+    real_train_net = benchmark_multiclass.train_net
+
+    def catching(cfg, output_dir=None, device="cuda", init_state_dict=None):
+        seen["init"] = init_state_dict
+        return real_train_net(cfg, output_dir=output_dir, device=device, init_state_dict=init_state_dict)
+
+    hi_argv = [*common, "--size", str(P19_HW[0]), "--width", str(P19_HW[1]), "--batch", str(P19_BATCH), "--train-iter-size",
+               str(P19_ITER_SIZE), "--lr", "1e-4", "--n-train", str(P19_PAIRS), "--n-val", str(P19_VAL),
+               "--epochs", "1", "--seed-convs", os.path.join(base, "run", benchmark_multiclass.PREFIX),
+               "--seed-epoch", "1", "--out", hires]
+    evals = 2 * TEST_ITERS  # pred_eval's refine and eval_flow_epe each render once an iteration
+    expect_hi = (c * (P19_PAIRS + P19_VAL) * 2 + (c * P19_PAIRS // P19_BATCH) * P19_ITER_SIZE
+                 + c * -(-P19_VAL // P19_BATCH) * evals)
+    benchmark_multiclass.train_net = catching
+    try:
+        run_bench("benchmark_multiclass 480x640 seeded", benchmark_multiclass.main, hi_argv, expect_hi, c * P19_VAL,
+                  card)
+    finally:
+        benchmark_multiclass.train_net = real_train_net
+    saved = read_checkpoint(os.path.join(base, "run", benchmark_multiclass.PREFIX), 1)["model"]
+    args = benchmark_multiclass.parse_args(hi_argv)
+    classes = sorted(benchmark_multiclass.make_benchmark_classes(c, 3))
+    cfg = benchmark_multiclass.benchmark_config(args, hires, classes, benchmark_multiclass.benchmark_k(*P19_HW))
+    fresh = build_model(cfg, device="cpu").state_dict()
+    init = seen["init"]
+    seeded = [k for k in init if k in saved and saved[k].shape == init[k].shape]
+    differ = [k for k in seeded if not torch.equal(init[k], saved[k])]
+    kept = sorted(set(init) - set(seeded))
+    if differ or kept != ["fc6.weight"] or not torch.equal(init["fc6.weight"], fresh["fc6.weight"]):
+        raise AssertionError(f"seeded 480x640 run: {differ} differ from the base checkpoint; kept fresh {kept}; "
+                             f"fc6.weight equal to the fresh draw: {torch.equal(init['fc6.weight'], fresh['fc6.weight'])}")
+    log(f"[phase 19 seeded] {len(seeded)} of {len(init)} tensors equal to the 256x256 checkpoint's bit for bit; "
+        f"fc6.weight {tuple(init['fc6.weight'].shape)} (base {tuple(saved['fc6.weight'].shape)}) equal to the fresh "
+        f"draw [{card}]")
+    checks = {}
+    for tag, train, image_set in (("a1_480x640_train", True, "train_"), ("a1_480x640_test", False, "val_")):
+        checks[tag] = bench_render_check(cfg, train, image_set, dev, card,
+                                         f"{tag} (480x640, batch {P19_BATCH})", batch=P19_BATCH)
+        checks[tag]["launches"] = expect_hi
+
+    # (C) synthetic_sanity: the cube (12 faces) and the 320-face sphere.
+    s_argv = ["--size", str(SANITY_SIZE), "--epochs", "1", "--n-train", str(SANITY_TRAIN), "--n-val",
+              str(SANITY_VAL), "--out", os.path.join(PHASE19_DIR, "sanity"), "--device", str(dev)]
+    expect_s = 2 * (SANITY_TRAIN + SANITY_VAL) * 2 + (2 * SANITY_TRAIN // 16) * 2 + 2 * -(-SANITY_VAL // 16) * evals
+    out, wall = tile_counted("synthetic_sanity", lambda: synthetic_sanity.main(s_argv), expect_s)
+    e, = out["epochs"]
+    rows = out["classes"]
+    numbers = [v for r in rows.values() for v in (r["init_acc"], r["init_mean"], *r["acc"], *r["mean"])]
+    if (e["nonfinite_losses"] or e["raster_dropped"] or not np.isfinite(e["metrics"]["total"]).all()
+            or not np.isfinite(numbers).all() or out["results"]["run"]["raster_dropped"]):
+        raise AssertionError(f"synthetic_sanity: {e['nonfinite_losses']} non-finite losses, dropped "
+                             f"{e['raster_dropped']}, table {rows}")
+    log(f"[phase 19 synthetic_sanity] {' '.join(s_argv)}: {wall:.3f} s; mean loss {float(e['metrics']['total'].mean()):.4f}; "
+        + "; ".join(f"{cls} ADD<0.1d init {r['init_acc']:.1f}% -> {[round(a, 1) for a in r['acc']]}, mean ADD "
+                    f"{r['init_mean']:.4f} -> {[round(m, 4) for m in r['mean']]} m" for cls, r in rows.items())
+        + f"; tile_raster {expect_s} launches [{card}]")
+
+    # (D) params_resume_parity: the seed run, the export, both continuations.
+    p_argv = ["--size", str(PARITY_SIZE), "--n-train", str(PARITY_TRAIN), "--n-val", str(PARITY_VAL), "--out",
+              os.path.join(PHASE19_DIR, "interop"), "--device", str(dev)]
+    steps = 2 * PARITY_TRAIN // 8 * 2  # an epoch's renders: TRAIN_ITER_SIZE 2
+    torch.cuda.synchronize()
+    rk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = params_resume_parity.main(p_argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_p = 2 * (PARITY_TRAIN + PARITY_VAL) * 2 + steps * (2 + 2)
+    counts = launch_counts()
+    if counts != {"csr_raster": 0, "csr_planes_raster": 0, "tile_raster": expect_p}:
+        raise AssertionError(f"params_resume_parity: launches {counts}, want tile_raster {expect_p} and nothing else")
+    if not res["ok"]:
+        raise AssertionError(f"params_resume_parity: {res}")
+    log(f"[phase 19 params_resume_parity] {' '.join(p_argv)}: {wall:.3f} s under torch.use_deterministic_algorithms; "
+        f".params vs .npz resume {res['max_abs_diff_params_vs_npz_resume']}, drift from the seed "
+        f"{res['max_abs_drift_from_seed']:.4g}; tile_raster {expect_p} launches [{card}]")
+    return {"tile_raster": checks}
+
+
+ALL_PHASES = set(range(1, 20))
 KERNEL_PHASES = set(range(2, 7))  # phase 2's scenes carry phases 3-6: they run together
 
 
 def parse_phases(text: str) -> set:
-    """'12', '2-6,12' or '1-12' -> the phases to run.  Phase 1 (the device
+    """'19', '2-6,12' or '1-19' -> the phases to run.  Phase 1 (the device
     and the build) always runs; phases 2-6 run together; phase 11 (its
     videos) reads phase 8's cached run."""
     phases = {1}
@@ -4314,7 +4451,7 @@ def main(argv: list | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke run of deepim_tpu_torch")
-    ap.add_argument("--phases", default="1-18", help="phases to run, e.g. 12 or 2-6,12 (default all; phase 1 "
+    ap.add_argument("--phases", default="1-19", help="phases to run, e.g. 19 or 2-6,12 (default all, 1-19; phase 1 "
                     "always runs, 2-6 run together, 11 needs 8)")
     ap.add_argument("--dp-rank", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 12
     args = ap.parse_args(argv)
@@ -4491,6 +4628,12 @@ def main(argv: list | None = None) -> int:
         for name, runs in drive_phase18(dev, card).items():
             extras.setdefault(name, {}).update(runs)
         log(f"[phase 18] took {time.perf_counter() - t18:.1f} s [{card}]")
+    if 19 in phases:
+        # 19. A1's chained 480x640 run, synthetic_sanity, params_resume_parity.
+        t19 = time.perf_counter()
+        for name, runs in drive_phase19(dev, card).items():
+            extras.setdefault(name, {}).update(runs)
+        log(f"[phase 19] took {time.perf_counter() - t19:.1f} s [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
@@ -4511,7 +4654,8 @@ def main(argv: list | None = None) -> int:
     # csr_raster at phase 16's recipe render (recipe_ keys) and at phase
     # 17's render of the flow2se3 targets (flow2se3_ keys), and tile_raster
     # at phase 18's track and fine-tune renders (track_learned_,
-    # trackft_train_ keys).  Without phase 2, the first later figures of a
+    # trackft_train_ keys) and phase 19's 480x640 training and test renders
+    # (a1_480x640_train_, a1_480x640_test_ keys).  Without phase 2, the first later figures of a
     # kernel are its own.
     base = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     for name, run in [("csr_raster", dp)] + [(n, next(iter(r.values()))) for n, r in extras.items()]:

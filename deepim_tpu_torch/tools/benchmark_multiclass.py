@@ -229,11 +229,13 @@ def main(argv: list[str] | None = None) -> dict | None:
 
 def print_epochs(epochs: list[dict]) -> None:
     """One line an epoch: its mean loss over steps and inner iterations
-    (each term and the total) and its samples/s."""
+    (each term and the total), its samples/s, seconds (and of them the
+    time blocked on the loader) and the decode cache's hits and misses."""
     for e in epochs:
         means = {k: float(v.mean()) for k, v in e["metrics"].items() if k.endswith("loss") or k == "total"}
-        print("epoch %d: %s; %.2f samples/s" % (e["epoch"], ", ".join(f"{k} {v:.5g}" for k, v in sorted(means.items())),
-                                                 e["samples"] / e["loop_s"]), flush=True)
+        print("epoch %d: %s; %.2f samples/s, %.1f s (loader wait %.1f s), decode cache %d hits, %d misses" % (
+            e["epoch"], ", ".join(f"{k} {v:.5g}" for k, v in sorted(means.items())), e["samples"] / e["loop_s"],
+            e["loop_s"], e["wait_s"], e["cache_hits"], e["cache_misses"]), flush=True)
 
 
 def print_run(generation: dict, epochs: list[dict], run: dict, wall_s: float) -> None:

@@ -17,38 +17,14 @@
 #   bash deepim_tpu_torch/tools/track_protocol.sh <log dir> [budget s, default 3400] [devkit dir]
 #
 # Logs: <log dir>/<step>.log, and <log dir>/summary.log (every step's
-# exit code and seconds, the TRACK_JSON and BENCH13_JSON lines).
+# exit code and seconds, the TRACK_JSON and BENCH13_JSON lines, each
+# epoch's line; protocol_steps.sh).
 set -u
 LOG=${1:?log directory}
 BUDGET=${2:-3400}
 DEVKIT=${3:-deepim_tpu_torch/_build/a1_256}
 RESERVE=300
-mkdir -p "$LOG"
-SUMMARY="$LOG/summary.log"
-: > "$SUMMARY"
-say() { echo "$*" | tee -a "$SUMMARY"; }
-
-say "card: $(nvidia-smi --query-gpu=name,power.limit --format=csv,noheader 2>&1 | head -1)"
-say "$(python -c 'import sys, torch; print(sys.version.split()[0], torch.__version__, torch.version.cuda)')"
-
-# step <name> <reserve s> <python -m module and arguments...>: run it under
-# the budget left less the reserve; returns the module's exit code.
-step() {
-  local name=$1 reserve=$2; shift 2
-  local left=$((BUDGET - SECONDS - reserve))
-  if [ "$left" -lt 60 ]; then
-    say "$name: skipped, ${left} s left of the budget"
-    return 99
-  fi
-  local t0=$SECONDS
-  timeout -k 10 "$left" python -u -m "$@" > "$LOG/$name.log" 2>&1
-  local rc=$?
-  say "$name: rc $rc, $((SECONDS - t0)) s (limit $left s)"
-  grep -h "^BENCH13_JSON\|^TRACK_JSON\|^run: \|^track: \|^| \(init\|iter\) " "$LOG/$name.log" | tee -a "$SUMMARY"
-  return $rc
-}
-
-newest_epoch() { ls "$1" 2>/dev/null | grep -E '^[0-9]+$' | sort -n | tail -1; }
+. "$(dirname "$0")/protocol_steps.sh"
 
 A="deepim_tpu_torch.tools.benchmark_multiclass --size 256 --classes 13 --lr 2e-4 --out $DEVKIT"
 T0=$SECONDS

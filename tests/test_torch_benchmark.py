@@ -199,13 +199,22 @@ def _capture(mp, owner, name: str, store: dict, key: str = "cfg"):
     mp.setattr(owner, name, stop)
 
 
+# tools/a1_protocol.sh's chunks, as experiments/run_r5_chip_queue5.sh runs them.
+A1_480 = ["--size", "480", "--width", "640", "--train-iter-size", "4", "--classes", "13", "--batch", "16", "--lr",
+          "1e-4", "--n-train", "128"]
 MULTICLASS_FLAGS = {
     "defaults": [],
     "480x640": ["--size", "480", "--width", "640", "--epochs", "8", "--train-iter-size", "4", "--lr", "1e-4",
                 "--classes", "3", "--lw-flow", "0", "--batch", "16", "--resume-epoch", "4"],
+    "a1_256_base_to_30": ["--size", "256", "--train-iter-size", "4", "--epochs", "30", "--classes", "13", "--lr",
+                          "2e-4", "--resume-epoch", "15", "--train-only"],
+    "a1_480x640_seeded_0to4": [*A1_480, "--epochs", "4", "--seed-convs", "base/run/bench13", "--seed-epoch", "30",
+                               "--train-only"],
+    "a1_480x640_4to8": [*A1_480, "--epochs", "8", "--resume-epoch", "4", "--train-only"],
 }
 OCCLUSION_FLAGS = {
     "fine-tune": ["--epochs", "30"],
+    "a1_queue5": ["--size", "256", "--epochs", "30", "--train-scenes", "256", "--finetune-epochs", "30"],
     "box_gt": ["--size", "256", "--epochs", "30", "--finetune-epochs", "8", "--train-iter-size", "2",
                "--ft-mask", "box_gt", "--resume-epoch", "34", "--batch", "16", "--train-scenes", "64"],
     "zero-shot": ["--train-scenes", "0", "--n-scenes", "16", "--classes", "4"],
@@ -222,6 +231,12 @@ def test_multiclass_config_equals_jax(flags, tmp_path):
     (out / "image_set").mkdir(parents=True)
     got = {}
     with pytest.MonkeyPatch.context() as mp:
+        if "--seed-convs" in argv:
+            # The seeding itself is held to JAX's in tests/test_torch_protocol.py.
+            mp.setattr(j_train_net, "build_model", lambda cfg: (None, {}))
+            mp.setattr(j_checkpoint, "load_checkpoint", lambda prefix, epoch, state: state)
+            mp.setattr(t_bm, "build_model", lambda cfg, device: torch.nn.Module())
+            mp.setattr(t_bm, "read_checkpoint", lambda prefix, epoch: {"model": {}})
         _capture(mp, j_train_net, "train_net", got, "jax")
         mp.setattr(sys, "argv", ["benchmark_multiclass.py", *argv, "--out", str(out)])
         with pytest.raises(_Stop):
@@ -230,7 +245,7 @@ def test_multiclass_config_equals_jax(flags, tmp_path):
         with pytest.raises(_Stop):
             t_bm.main([*argv, "--out", str(out), "--device", "cpu"])
     assert dataclasses.asdict(got["port"]) == dataclasses.asdict(got["jax"])
-    assert got["port"].TRAIN.RESUME == (flags != "defaults")
+    assert got["port"].TRAIN.RESUME == ("--resume-epoch" in argv)
 
 
 @pytest.mark.parametrize("flags", sorted(OCCLUSION_FLAGS))
