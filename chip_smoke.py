@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 17   # phase 1 and phase 17 (flow2se3, pose metrics, the module tail) alone
     python3 chip_smoke.py --phases 18   # phase 1 and phase 18 (learned tracking, the tracking fine-tune) alone
     python3 chip_smoke.py --phases 19   # phase 1 and phase 19 (A1's seeded 480x640 run, the learning and resume checks)
+    python3 chip_smoke.py --phases 20   # phase 1 and phase 20 (the image readers on a devkit and its re-encoded twin)
 
 Phases (each raises on failure; the script then exits non-zero):
   1. device and build: the card's name and power limit, torch's CUDA
@@ -315,6 +316,28 @@ Phases (each raises on failure; the script then exits non-zero):
      pair dropped, the tables finite; the two continued runs of (D) equal
      bit for bit and moved from the seed (an op of the path without a
      deterministic CUDA implementation raises, naming itself).
+ 20. the image readers (utils/imread.py: PNG and JPEG by content, as
+     cv2.imread reads them) through both drivers, under
+     deepim_tpu_torch/_build/phase20/: a 480x640 devkit as phases 8-9
+     write it (4 training and 4 test pairs a class) and its twin, the same
+     file names re-encoded: observed colour files in turn a baseline JPEG
+     in the base and the progressive JPEG of the same coefficients in the
+     twin (encode_jpeg, libjpeg's simple progression script), a palette PNG
+     where the image has at most 256 colours (else Adam7 RGB), 16-bit RGB
+     at v * 257 and Adam7 RGB in the twin; depths 16-bit and labels 8-bit
+     gray Adam7, half with a tRNS chunk; a VOC pool of two baseline JPEGs
+     in the base and their progressive twins (one with restarts).  Each
+     twin file decodes on the host exactly to its base file's array in its
+     site's mode; then, for each class alone in its bank (cube:
+     tile_raster; sphere: csr_raster), test_deepim (4 pairs, batch 16, a
+     seeded full network) and train_net (2 steps of 4 pairs, VOC ratio 0.5,
+     one epoch from seeded weights) on both devkits under
+     torch.use_deterministic_algorithms.  Checked: the twin's poses, tables,
+     every step's losses and the trained parameters equal the base's bit
+     for bit; the drivers read colour, depth, label and VOC files through
+     imread; the class's kernel launched exactly as planned and nothing
+     else, and bit-equal to its twin at the class's test render.  It
+     prints imread's ms per image for each encoding.
 Launch counters are zeroed just before each main-path phase and read just
 after it.  The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -326,6 +349,7 @@ import dataclasses
 import json
 import math
 import os
+import pickle
 import random
 import shutil
 import statistics
@@ -334,6 +358,7 @@ import subprocess
 import sys
 import threading
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -1068,7 +1093,6 @@ def small_driver_check(dev) -> None:
     weights: fp32 per-iteration poses to 2e-4, as the tests hold the CPU
     path to the JAX package; bf16 (network and image zoom on both sides)
     within BF16_GAP_FACTOR times the CPU's own bf16-vs-fp32 gap."""
-    import pickle
 
     k64 = K64
     devkit = os.path.join(PHASE8_DIR, "devkit64")
@@ -3594,11 +3618,12 @@ def _size_bits(v: int) -> tuple[int, int]:
     return s, (v if v >= 0 else v + (1 << s) - 1)
 
 
-def encode_jpeg(rgb: np.ndarray, quality: int = VOC_QUALITY, sampling: str = "420", restart: int = 0) -> bytes:
-    """A baseline (SOF0) JFIF JPEG of an (h, w, 3) uint8 RGB image: YCbCr
-    with 4:2:0 or 4:4:4 chroma, float DCT, libjpeg's quality-scaled tables,
-    optimal Huffman tables and, with `restart`, a restart marker every
-    `restart` MCUs."""
+def _jpeg_blocks(rgb: np.ndarray, quality: int, sampling: str) -> tuple:
+    """The quantised coefficients of an (h, w, 3) uint8 RGB image as a JFIF
+    encoder makes them: YCbCr, 4:2:0 or 4:4:4 chroma, float DCT, libjpeg's
+    quality-scaled tables.  Returns (blocks, qtabs, hv, mh, mw): per
+    component (rows, cols, 64) int64 in zig-zag order over whole MCUs, the
+    two tables, the luma sampling factor and the MCU rows and columns."""
     h, w = rgb.shape[:2]
     f = rgb.astype(np.float64)
     ycc = [0.299 * f[..., 0] + 0.587 * f[..., 1] + 0.114 * f[..., 2],
@@ -3607,71 +3632,171 @@ def encode_jpeg(rgb: np.ndarray, quality: int = VOC_QUALITY, sampling: str = "42
     hv = 2 if sampling == "420" else 1
     mcu = 8 * hv
     mh, mw = -(-h // mcu), -(-w // mcu)
-    planes = []
-    for ci, p in enumerate(ycc):
-        p = np.pad(p, ((0, mh * mcu - h), (0, mw * mcu - w)), mode="edge")
-        if ci and hv == 2:
-            p = p.reshape(mh * 8, 2, mw * 8, 2).mean(axis=(1, 3))
-        planes.append(p)
     n = np.arange(8)
     dct = np.sqrt(2 / 8) * np.cos((2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
     dct[0] /= np.sqrt(2)
     qtabs = [_quant_table(LUMA_Q, quality), _quant_table(CHROMA_Q, quality)]
-    blocks = []  # per component: (rows, cols, 64) quantised, zig-zag order
-    for ci, p in enumerate(planes):
+    blocks = []
+    for ci, p in enumerate(ycc):
+        p = np.pad(p, ((0, mh * mcu - h), (0, mw * mcu - w)), mode="edge")
+        if ci and hv == 2:
+            p = p.reshape(mh * 8, 2, mw * 8, 2).mean(axis=(1, 3))
         b = (p - 128).reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8).transpose(0, 2, 1, 3)
         c = np.einsum("ui,rcij,vj->rcuv", dct, b, dct).reshape(b.shape[0], b.shape[1], 64)
         blocks.append(np.round(c / qtabs[min(ci, 1)]).astype(np.int64)[:, :, ZIGZAG])
-    # Symbols in scan order: (table, symbol, extra bits, extra length), and
-    # the index of the first symbol of each restart interval.
+    return blocks, qtabs, hv, mh, mw
+
+
+def _mcu_blocks(blocks: list, hv: int, mh: int, mw: int) -> list:
+    """The blocks of an interleaved scan in decode order: (component, zig-zag
+    coefficients) for every block of every MCU."""
     order = [(0, dy, dx) for dy in range(hv) for dx in range(hv)] + [(1, 0, 0), (2, 0, 0)]
-    syms, starts, pred = [], [], [0, 0, 0]
+    rows = [b.tolist() for b in blocks]
+    out = []
     for m in range(mh * mw):
-        if restart and m % restart == 0:
-            starts.append(len(syms))
-            pred = [0, 0, 0]
         my, mx = divmod(m, mw)
         for ci, dy, dx in order:
-            zz = blocks[ci][my * (hv if ci == 0 else 1) + dy, mx * (hv if ci == 0 else 1) + dx]
-            t = min(ci, 1)
-            s, v = _size_bits(int(zz[0]) - pred[ci])
-            pred[ci] = int(zz[0])
-            syms.append((2 * t, s, v, s))
-            run = 0
-            nz = np.flatnonzero(zz[1:]) + 1
-            last = 0
-            for k in nz:
-                run = int(k) - last - 1
+            s = hv if ci == 0 else 1
+            out.append((ci, rows[ci][my * s + dy][mx * s + dx]))
+    return out
+
+
+def _baseline_scan(blocks, hv, mh, mw, restart: int) -> tuple:
+    """One interleaved sequential scan: its symbols (table, symbol, extra
+    bits, extra length; tables 0/2 DC and 1/3 AC of luma/chroma) and the
+    index of the first symbol of each restart interval."""
+    per_mcu = hv * hv + 2
+    syms, starts, pred = [], [], [0, 0, 0]
+    for i, (ci, zz) in enumerate(_mcu_blocks(blocks, hv, mh, mw)):
+        if restart and i % (restart * per_mcu) == 0:
+            starts.append(len(syms))
+            pred = [0, 0, 0]
+        t = min(ci, 1)
+        s, v = _size_bits(zz[0] - pred[ci])
+        pred[ci] = zz[0]
+        syms.append((2 * t, s, v, s))
+        last = 0
+        for k in range(1, 64):
+            if not zz[k]:
+                continue
+            run = k - last - 1
+            while run > 15:
+                syms.append((2 * t + 1, 0xF0, 0, 0))
+                run -= 16
+            s, v = _size_bits(zz[k])
+            syms.append((2 * t + 1, (run << 4) | s, v, s))
+            last = k
+        if last < 63:
+            syms.append((2 * t + 1, 0x00, 0, 0))
+    return syms, starts
+
+
+# libjpeg's jpeg_simple_progression for three-component YCbCr: (components,
+# Ss, Se, Ah, Al) of each scan.
+SIMPLE_PROGRESSION = (((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+                      ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1), ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+                      ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0))
+
+
+def _progressive_scan(blocks, hv, mh, mw, h, w, comps, ss, se, ah, al, restart: int) -> tuple:
+    """One scan of a progressive file as libjpeg's jcphuff.c codes it: DC
+    first (difference of coefficient >> Al) and DC refinement (bit Al),
+    AC first (run/size symbols of |coefficient| >> Al with EOB runs) and AC
+    refinement (new coefficients of magnitude 1 with their sign, and a
+    correction bit for each coefficient already nonzero, buffered with EOB
+    runs).  Symbols as _baseline_scan's; table -1 marks raw bits."""
+    syms, starts = [], []
+    if ss == 0:
+        blist = _mcu_blocks(blocks, hv, mh, mw)
+        per_mcu = hv * hv + 2
+    else:
+        (ci,) = comps
+        sub = hv if ci else 1  # chroma is subsampled by the luma factor
+        bh, bw = -(-(-(-h // sub)) // 8), -(-(-(-w // sub)) // 8)
+        rows = blocks[ci].tolist()
+        blist = [(ci, rows[by][bx]) for by in range(bh) for bx in range(bw)]
+        per_mcu = 1
+    pred = [0, 0, 0]
+    eob, be = 0, []
+
+    def flush():
+        nonlocal eob, be
+        if eob:
+            n = eob.bit_length() - 1
+            syms.append((table, n << 4, eob & ((1 << n) - 1), n))
+            syms.extend((-1, 0, bit, 1) for bit in be)
+            eob, be = 0, []
+
+    for i, (ci, zz) in enumerate(blist):
+        table = 2 * min(ci, 1) + (ss > 0)
+        if restart and i % (restart * per_mcu) == 0:
+            flush()
+            starts.append(len(syms))
+            pred = [0, 0, 0]
+        if ss == 0:
+            if ah == 0:
+                v = zz[0] >> al
+                s, bits = _size_bits(v - pred[ci])
+                pred[ci] = v
+                syms.append((table, s, bits, s))
+            else:
+                syms.append((-1, 0, (zz[0] >> al) & 1, 1))
+            continue
+        absv = [abs(zz[k]) >> al for k in range(ss, se + 1)]
+        run, br = 0, []
+        if ah == 0:
+            for k, a in zip(range(ss, se + 1), absv):
+                if not a:
+                    run += 1
+                    continue
+                flush()
                 while run > 15:
-                    syms.append((2 * t + 1, 0xF0, 0, 0))
+                    syms.append((table, 0xF0, 0, 0))
                     run -= 16
-                s, v = _size_bits(int(zz[k]))
-                syms.append((2 * t + 1, (run << 4) | s, v, s))
-                last = int(k)
-            if last < 63:
-                syms.append((2 * t + 1, 0x00, 0, 0))
-    tables = []
-    for tid in range(4):
-        freq = {}
-        for table, sym, _, _ in syms:
-            if table == tid:
-                freq[sym] = freq.get(sym, 0) + 1
-        tables.append(_huffman_lengths(freq))
-    codes = [_canonical_codes(*t) for t in tables]
-    vals = np.array([(codes[t][s][0] << n) | v for t, s, v, n in syms], np.uint64)
-    lens = np.array([codes[t][s][1] + n for t, s, _, n in syms], np.int64)
+                n = a.bit_length()
+                syms.append((table, (run << 4) | n, a if zz[k] > 0 else (~a) & ((1 << n) - 1), n))
+                run = 0
+        else:
+            last_new = max((k for k, a in zip(range(ss, se + 1), absv) if a == 1), default=0)
+            for k, a in zip(range(ss, se + 1), absv):
+                if not a:
+                    run += 1
+                    continue
+                while run > 15 and k <= last_new:
+                    flush()
+                    syms.append((table, 0xF0, 0, 0))
+                    run -= 16
+                    syms.extend((-1, 0, bit, 1) for bit in br)
+                    br = []
+                if a > 1:
+                    br.append(a & 1)
+                    continue
+                flush()
+                syms.append((table, (run << 4) | 1, 0, 0))
+                syms.append((-1, 0, int(zz[k] > 0), 1))
+                syms.extend((-1, 0, bit, 1) for bit in br)
+                br, run = [], 0
+        if run or br:
+            eob += 1
+            be.extend(br)
+            if eob == 0x7FFF or len(be) > 1000 - 64 + 1:
+                flush()
+    if blist:
+        table = 2 * min(blist[-1][0], 1) + (ss > 0)
+        flush()
+    return syms, starts
 
-    def pack(lo: int, hi: int) -> bytes:
-        v, ln = vals[lo:hi], lens[lo:hi]
-        total = int(ln.sum())
-        offs = np.arange(total) - np.repeat(np.cumsum(ln) - ln, ln)
-        bits = (np.repeat(v, ln) >> np.repeat(ln, ln).astype(np.uint64) - 1 - offs.astype(np.uint64)) & 1
-        bits = np.concatenate([bits.astype(np.uint8), np.ones(-total % 8, np.uint8)])
-        return np.packbits(bits).tobytes().replace(b"\xff", b"\xff\x00")
 
-    bounds = (starts or [0]) + [len(syms)]
-    data = b"".join(pack(lo, hi) + (bytes([0xFF, 0xD0 + i % 8]) if i + 2 < len(bounds) else b"")
-                    for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])))
+def encode_jpeg(rgb: np.ndarray, quality: int = VOC_QUALITY, sampling: str = "420", restart: int = 0,
+                progressive: bool = False) -> bytes:
+    """A JFIF JPEG of an (h, w, 3) uint8 RGB image (_jpeg_blocks'
+    coefficients) with optimal Huffman tables and, with `restart`, a
+    restart marker every `restart` MCUs: baseline (SOF0, one interleaved
+    scan), or progressive (SOF2, libjpeg's simple progression script, a
+    Huffman table per scan) from the same quantised coefficients, so the
+    two decode to the same pixels."""
+    h, w = rgb.shape[:2]
+    blocks, qtabs, hv, mh, mw = _jpeg_blocks(rgb, quality, sampling)
 
     def segment(marker: int, body: bytes) -> bytes:
         return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
@@ -3679,14 +3804,43 @@ def encode_jpeg(rgb: np.ndarray, quality: int = VOC_QUALITY, sampling: str = "42
     out = [b"\xff\xd8", segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
     out += [segment(0xDB, bytes([t]) + bytes(int(x) for x in q[ZIGZAG])) for t, q in enumerate(qtabs)]
     samp = [(hv << 4) | hv, 0x11, 0x11]
-    out.append(segment(0xC0, struct.pack(">BHHB", 8, h, w, 3)
+    out.append(segment(0xC2 if progressive else 0xC0, struct.pack(">BHHB", 8, h, w, 3)
                        + b"".join(bytes([ci + 1, samp[ci], min(ci, 1)]) for ci in range(3))))
-    for tid, (counts, symbols) in enumerate(tables):
-        out.append(segment(0xC4, bytes([(tid % 2) << 4 | tid // 2]) + bytes(counts) + bytes(symbols)))
     if restart:
         out.append(segment(0xDD, struct.pack(">H", restart)))
-    out.append(segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
-    return b"".join(out) + data + b"\xff\xd9"
+    scans = (SIMPLE_PROGRESSION if progressive else (((0, 1, 2), 0, 63, 0, 0),))
+    for comps, ss, se, ah, al in scans:
+        if progressive:
+            syms, starts = _progressive_scan(blocks, hv, mh, mw, h, w, comps, ss, se, ah, al, restart)
+        else:
+            syms, starts = _baseline_scan(blocks, hv, mh, mw, restart)
+        codes = {}
+        for tid in range(4):
+            freq = {}
+            for table, sym, _, _ in syms:
+                if table == tid:
+                    freq[sym] = freq.get(sym, 0) + 1
+            if freq:
+                counts, symbols = _huffman_lengths(freq)
+                codes[tid] = _canonical_codes(counts, symbols)
+                out.append(segment(0xC4, bytes([(tid % 2) << 4 | tid // 2]) + bytes(counts) + bytes(symbols)))
+        vals = np.array([v if t < 0 else (codes[t][s][0] << n) | v for t, s, v, n in syms] or [0], np.uint64)
+        lens = np.array([n if t < 0 else codes[t][s][1] + n for t, s, _, n in syms] or [0], np.int64)
+
+        def pack(lo: int, hi: int) -> bytes:
+            v, ln = vals[lo:hi], lens[lo:hi]
+            total = int(ln.sum())
+            offs = np.arange(total) - np.repeat(np.cumsum(ln) - ln, ln)
+            bits = (np.repeat(v, ln) >> np.repeat(ln, ln).astype(np.uint64) - 1 - offs.astype(np.uint64)) & 1
+            bits = np.concatenate([bits.astype(np.uint8), np.ones(-total % 8, np.uint8)])
+            return np.packbits(bits).tobytes().replace(b"\xff", b"\xff\x00")
+
+        bounds = (starts or [0]) + [len(syms)]
+        data = b"".join(pack(lo, hi) + (bytes([0xFF, 0xD0 + i % 8]) if i + 2 < len(bounds) else b"")
+                        for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])))
+        sos = bytes([len(comps)]) + b"".join(bytes([ci + 1, min(ci, 1) * 0x11]) for ci in comps)
+        out.append(segment(0xDA, sos + bytes([ss, se, (ah << 4) | al])) + data)
+    return b"".join(out) + b"\xff\xd9"
 
 
 def voc_scene(hw: tuple, seed: int) -> np.ndarray:
@@ -4426,12 +4580,303 @@ def drive_phase19(dev, card: str) -> dict:
     return {"tile_raster": checks}
 
 
-ALL_PHASES = set(range(1, 20))
+# Phase 20: the image readers (utils/imread.py) through both drivers at
+# full width, on a devkit and its re-encoded twin (files under a gitignored
+# directory).
+
+PHASE20_DIR = os.path.join(ROOT, "deepim_tpu_torch", "_build", "phase20")
+P20_TRAIN = 4         # training pairs a class, read as LM6D_REFINE and LM6D_REFINE_SYN: 2 steps of batch 4
+P20_VAL = 4           # test pairs a class: one batch of 16, padded
+P20_VOC = (((375, 500), "420", 0), ((333, 500), "444", 4))  # VOC pool: (h, w), chroma sampling, restart interval
+P20_COLOR = ("jpeg", "palette", "rgb16", "adam7")  # twin encodings, cycled over the observed colour files
+P20_SEED = 20
+P20_KERNEL = {"cube": "tile_raster", "sphere": "csr_raster"}  # each class alone in its bank
+
+
+def png_file(samples: np.ndarray, ctype: int, depth: int, palette=None, trns: bytes | None = None,
+             interlace: bool = False) -> bytes:
+    """A PNG of (h, w, channels) samples at 8 or 16 bits (colour type
+    `ctype`, Sub rows, Adam7 if `interlace`), with PLTE and tRNS chunks
+    when given: the twin devkit's encodings, which the devkit writers never
+    use."""
+    channels = {0: 1, 2: 3, 3: 1}[ctype]
+    bpp = channels * depth // 8
+    passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+    body = []
+    for x0, y0, dx, dy in passes if interlace else ((0, 0, 1, 1),):
+        sub = samples[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        rows = (sub.astype(">u2").view(np.uint8) if depth == 16 else sub.astype(np.uint8)).reshape(sub.shape[0], -1)
+        sub_rows = rows.copy()
+        sub_rows[:, bpp:] = rows[:, bpp:] - rows[:, :-bpp]  # uint8 wraps, as the Sub filter does
+        body.append(np.concatenate([np.ones((rows.shape[0], 1), np.uint8), sub_rows], axis=1).tobytes())
+
+    def chunk(ctype_: bytes, payload: bytes) -> bytes:
+        return struct.pack(">I", len(payload)) + ctype_ + payload + struct.pack(">I", zlib.crc32(ctype_ + payload))
+
+    h, w = samples.shape[:2]
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace)))
+    if palette is not None:
+        out += chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += chunk(b"tRNS", trns)
+    return out + chunk(b"IDAT", zlib.compress(b"".join(body), 1)) + chunk(b"IEND", b"")
+
+
+def twin_devkit(base: str, twin: str) -> list:
+    """Copy the devkit `base` to `twin` and re-encode both sides' files
+    under their own names.  Observed colour files cycle through P20_COLOR:
+    a baseline JPEG in the base and the progressive JPEG of the same
+    coefficients in the twin, or the base's RGB PNG as a palette PNG
+    (Adam7; where the image has at most 256 colours, else Adam7 RGB), as
+    16-bit RGB at v * 257 or as Adam7 RGB in the twin.  Every depth becomes
+    16-bit gray Adam7 (every second one with a tRNS chunk), every label
+    8-bit gray Adam7 (likewise).  A VOC pool (P20_VOC) goes in as baseline
+    JPEGs in the base and progressive ones in the twin.  Returns the
+    (base, twin, site mode, variant) of every file changed."""
+    shutil.copytree(base, twin)
+    pairs = []
+    data = os.path.join(base, "data")
+    files = sorted(os.path.join(r, f) for r, _, fs in os.walk(data) for f in fs if f.endswith(".png"))
+    colour_i = 0
+    for path in files:
+        rel = os.path.relpath(path, base)
+        kind = os.path.basename(path)[:-4].rsplit("-", 1)[-1]
+        twin_path = os.path.join(twin, rel)
+        if kind == "color" and f"{os.sep}observed{os.sep}" in path:
+            rgb = read_png(path)
+            variant = P20_COLOR[colour_i % len(P20_COLOR)]
+            colour_i += 1
+            if variant == "jpeg":
+                with open(path, "wb") as f:
+                    f.write(encode_jpeg(rgb, VOC_QUALITY, "420"))
+                blob = encode_jpeg(rgb, VOC_QUALITY, "420", progressive=True)
+                variant = "progressive JPEG"
+            elif variant == "palette":
+                colours, index = np.unique(rgb.reshape(-1, 3), axis=0, return_inverse=True)
+                if len(colours) <= 256:
+                    blob = png_file(index.reshape(rgb.shape[0], rgb.shape[1], 1), 3, 8, palette=colours, interlace=True)
+                    variant = "palette Adam7"
+                else:
+                    blob = png_file(rgb, 2, 8, interlace=True)
+                    variant = f"RGB Adam7 ({len(colours)} colours: no palette)"
+            elif variant == "rgb16":
+                blob = png_file(rgb.astype(np.uint16) * 257, 2, 16)
+                variant = "16-bit RGB (v * 257)"
+            else:
+                blob = png_file(rgb, 2, 8, interlace=True)
+                variant = "RGB Adam7"
+            mode = "color"
+        elif kind in ("depth", "label"):
+            img = read_png(path)
+            depth = 16 if kind == "depth" else 8
+            trns = struct.pack(">H", int(img[0, 0])) if len(pairs) % 2 else None
+            blob = png_file(img[:, :, None], 0, depth, trns=trns, interlace=True)
+            variant = f"{depth}-bit gray Adam7" + (" + tRNS" if trns else "")
+            mode = "unchanged"
+        else:
+            continue
+        with open(twin_path, "wb") as f:
+            f.write(blob)
+        pairs.append((path, twin_path, mode, variant))
+    for root, progressive in ((base, False), (twin, True)):
+        voc = os.path.join(root, "VOCdevkit", "VOC2012")
+        os.makedirs(os.path.join(voc, "ImageSets", "Main"))
+        os.makedirs(os.path.join(voc, "JPEGImages"))
+        lines = []
+        for i, (hw, sampling, restart) in enumerate(P20_VOC):
+            name = f"2008_{i:06d}"
+            with open(os.path.join(voc, "JPEGImages", f"{name}.jpg"), "wb") as f:
+                f.write(encode_jpeg(voc_scene(hw, P20_SEED + i), VOC_QUALITY, sampling, restart, progressive))
+            lines.append(f"{name}  1")
+        with open(os.path.join(voc, "ImageSets", "Main", "diningtable_trainval.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    for i, (_, sampling, restart) in enumerate(P20_VOC):
+        rel = os.path.join("VOCdevkit", "VOC2012", "JPEGImages", f"2008_{i:06d}.jpg")
+        pairs.append((os.path.join(base, rel), os.path.join(twin, rel), "color",
+                      f"VOC progressive JPEG {sampling}" + (f" RST {restart}" if restart else "")))
+    return pairs
+
+
+def twin_decodes(pairs: list, card: str) -> None:
+    """Each twin file read by imread, in its site's mode, equals its base
+    file bit for bit; logs the decode ms per image of each encoding (median
+    over its files, on the host CPU)."""
+    from deepim_tpu_torch.utils.imread import imread
+
+    times = {}
+    for base, twin, mode, variant in pairs:
+        t0 = time.perf_counter()
+        a = imread(base, mode)
+        t1 = time.perf_counter()
+        b = imread(twin, mode)
+        t2 = time.perf_counter()
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"imread: {twin} ({variant}) differs from its twin {base} in mode {mode}")
+        with open(base, "rb") as f:
+            jpeg = f.read(3) == b"\xff\xd8\xff"
+        base_kind = f"{'baseline JPEG' if jpeg else 'PNG as written'} ({mode})"
+        if "VOC" in variant:
+            base_kind = f"VOC baseline JPEG {a.shape[1]}x{a.shape[0]}"
+        times.setdefault(base_kind, []).append((t1 - t0) * 1e3)
+        times.setdefault(variant.split(" (")[0], []).append((t2 - t1) * 1e3)
+    out = {k: statistics.median(v) for k, v in times.items()}
+    log(f"[phase 20 decode] {len(pairs)} twin files equal to their base files under their sites' modes; imread ms "
+        f"per image (median, host CPU; {H}x{W} but the VOC pool's): "
+        + "; ".join(f"{k} {v:.1f} ({len(times[k])} files)" for k, v in out.items()) + f" [{card}]")
+
+
+def p20_config(devkit: str, out_root: str, cls: str):
+    """lm6d_ape_iter4_8epoch.yaml pointed at one class of a phase-20
+    devkit (its bank that class alone), its VOC pool at
+    REPLACE_OBSERVED_BG_RATIO RECIPE_BG_RATIO, one epoch from seeded
+    weights, tested at that epoch."""
+    cfg = update_config_dict(load_config(EVAL_CFG), {
+        "output_path": out_root,
+        "dataset": {"dataset_path": devkit, "root_path": devkit, "model_dir": os.path.join(devkit, "models"),
+                    "class_name": [cls], "NUM_CLASSES": 1, "test_image_set": "val_"},
+        "network": {"pretrained": ""},
+        "TRAIN": {"end_epoch": 1, "grad_clip": RECIPE_TCFG.grad_clip, "REPLACE_OBSERVED_BG_RATIO": RECIPE_BG_RATIO},
+        "TEST": {"test_epoch": 1},
+    })
+    return validate_config(cfg)
+
+
+class ReadLog:
+    """Every path data/preprocess.py hands utils/imread.py while installed
+    (the drivers' reads: colour, depth, label and VOC files)."""
+
+    def __init__(self):
+        self.paths = []
+
+    @contextlib.contextmanager
+    def installed(self):
+        from deepim_tpu_torch.data import preprocess
+
+        real = preprocess.imread
+
+        def logged(path, mode):
+            self.paths.append((path, mode))
+            return real(path, mode)
+
+        preprocess.imread = logged
+        try:
+            yield self
+        finally:
+            preprocess.imread = real
+
+
+def drive_phase20(dev, card: str) -> dict:
+    """Phase 20 (see the module docstring).  Returns each kernel's check at
+    its class's test render with its launches over the phase's driver runs
+    (imread_ keys)."""
+    from deepim_tpu_torch.tools.params_resume_parity import deterministic
+
+    shutil.rmtree(PHASE20_DIR, ignore_errors=True)
+    base, twin = os.path.join(PHASE20_DIR, "base"), os.path.join(PHASE20_DIR, "twin")
+    write_devkit(base, P20_TRAIN, P20_VAL, dev, card, "phase 20")
+    t0 = time.perf_counter()
+    pairs = twin_devkit(base, twin)
+    kinds = {}
+    for *_, variant in pairs:
+        kinds[variant] = kinds.get(variant, 0) + 1
+    log(f"[phase 20 twin] {len(pairs)} files re-encoded in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(f"{k} x{n}" for k, n in kinds.items()) + f" [{card}]")
+    twin_decodes(pairs, card)
+
+    checks, launches = {}, {"csr_raster": 0, "tile_raster": 0}
+    for cls, kname in P20_KERNEL.items():
+        cfg = {side: p20_config(root, os.path.join(PHASE20_DIR, f"out_{side}_{cls}"), cls)
+               for side, root in (("base", base), ("twin", twin))}
+        c = cfg["base"]
+        b, n_inner, n_iter = c.TRAIN.BATCH_PAIRS, c.network.TRAIN_ITER_SIZE, c.TEST.test_iter
+        bank = build_mesh_bank(c)
+        ecfg = EngineConfig.from_config(c, bank_arrays=bank)
+        _, recs = load_gt_pairdb(c, "LM6D_REFINE", f"val_{cls}", cls, base, base)
+        m = MeshBuffers.gather(bank, np.zeros(EVAL_B, np.int64), device=dev)
+        poses = np.stack([recs[i % len(recs)]["pose_rendered"] for i in range(EVAL_B)])
+        plan = kernel_inputs(m.vertices, m.colors, m.faces, m.face_valid, torch.from_numpy(poses),
+                             torch.from_numpy(c.dataset.intrinsic_matrix()), ecfg.raster, corners=m.corners,
+                             corner_colors=m.corner_colors, device=dev)
+        if {name for name, _ in plan} != {kname}:
+            raise AssertionError(f"phase 20 {cls}: a test render plans {[name for name, _ in plan]}, want {kname}")
+        kernel = check_kernel(kname, plan[0][1], card, shape=f"phase 20 {cls} test render")
+        kernel.pop("out", None)
+        model = make_model(True, P20_SEED, dev, hw=(c.height, c.width))
+        init = build_model(c, device="cpu").state_dict()
+        steps = 2 * P20_TRAIN // b
+        runs = {}
+        for side in ("base", "twin"):
+            reads = ReadLog()
+            with deterministic(dev), reads.installed():
+                torch.cuda.synchronize()
+                rk.reset_launch_counts()
+                t0 = time.perf_counter()
+                res = test_deepim(cfg[side], output_dir=os.path.join(PHASE20_DIR, f"test_{side}_{cls}"),
+                                  batch_size=EVAL_B, device=dev, model=model)
+                torch.cuda.synchronize()
+                test_s = time.perf_counter() - t0
+                test_counts = launch_counts()
+                rk.reset_launch_counts()
+                t0 = time.perf_counter()
+                state = train_net(cfg[side], output_dir=os.path.join(PHASE20_DIR, f"train_{side}_{cls}"), device=dev,
+                                  init_state_dict=init)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+                train_counts = launch_counts()
+            want_test = {**{k: 0 for k in launches}, "csr_planes_raster": 0, kname: len(plan) * n_iter}
+            want_train = {**want_test, kname: len(plan) * n_inner * steps}
+            if test_counts != want_test or train_counts != want_train:
+                raise AssertionError(f"phase 20 {cls} {side}: launches {test_counts} (test), {train_counts} (train); "
+                                     f"want {want_test}, {want_train}")
+            launches[kname] += test_counts[kname] + train_counts[kname]
+            e = state.epochs[0]
+            if res["run"]["raster_dropped"] or e["nonfinite_losses"] or e["raster_dropped"]:
+                raise AssertionError(f"phase 20 {cls} {side}: dropped {res['run']['raster_dropped']} / "
+                                     f"{e['raster_dropped']}, non-finite losses {e['nonfinite_losses']}")
+            voc = [p for p, _ in reads.paths if "JPEGImages" in p]
+            kinds_read = {os.path.basename(p)[:-4].rsplit("-", 1)[-1] for p, _ in reads.paths}
+            if not voc or not {"color", "depth", "label"} <= kinds_read:
+                raise AssertionError(f"phase 20 {cls} {side}: the drivers read {sorted(kinds_read)} through imread, "
+                                     f"{len(voc)} VOC backgrounds")
+            with open(os.path.join(PHASE20_DIR, f"test_{side}_{cls}", "results_pose.pkl"), "rb") as f:
+                poses = f.read()  # every iteration's estimates and the ground truth, pickled numpy arrays
+            runs[side] = {"res": res, "poses": poses, "metrics": e["metrics"],
+                          "params": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+                          "test_s": test_s, "train_s": train_s, "loop_s": e["loop_s"], "reads": len(reads.paths),
+                          "voc": len(voc)}
+        a, t = runs["base"], runs["twin"]
+        poses_equal = a["poses"] == t["poses"]
+        tables_equal = all(all(np.array_equal(np.asarray(r1[k]), np.asarray(r2[k])) for k in r1)
+                           for (_, _, _, r1), (_, _, _, r2) in zip(_table_rows(a["res"], [cls], n_iter),
+                                                                   _table_rows(t["res"], [cls], n_iter)))
+        losses_equal = set(a["metrics"]) == set(t["metrics"]) and all(
+            np.array_equal(np.asarray(a["metrics"][k]), np.asarray(t["metrics"][k])) for k in a["metrics"])
+        params_equal = all(torch.equal(v, t["params"][k]) for k, v in a["params"].items())
+        if not (poses_equal and tables_equal and losses_equal and params_equal):
+            raise AssertionError(f"phase 20 {cls}: twin vs base devkit: poses equal {poses_equal}, tables equal "
+                                 f"{tables_equal}, losses equal {losses_equal}, trained parameters equal {params_equal}")
+        check_tables(f"phase 20 {cls}", t["res"], [cls], n_iter)
+        loss = {k: float(np.asarray(v)[-1, -1]) for k, v in t["metrics"].items() if k.endswith("loss")}
+        log(f"[phase 20 {cls}] {kname}: test_deepim ({P20_VAL} pairs, batch {EVAL_B}, {n_iter} iterations) base "
+            f"{a['test_s']:.3f} s / twin {t['test_s']:.3f} s; train_net ({steps} steps of {b} pairs x {n_inner}, VOC "
+            f"ratio {RECIPE_BG_RATIO}) base {a['train_s']:.3f} s / twin {t['train_s']:.3f} s (loop {a['loop_s']:.3f} / "
+            f"{t['loop_s']:.3f} s); imread calls {a['reads']} / {t['reads']}, VOC reads {a['voc']} / {t['voc']}; "
+            f"under deterministic algorithms the twin's poses, tables, losses ({loss}) and trained parameters equal "
+            f"the base's bit for bit; {kname} {len(plan)} a render, launches as planned [{card}]")
+        checks[kname] = {"imread": kernel}
+    for kname, entry in checks.items():
+        entry["imread"]["launches"] = launches[kname]
+    return checks
+
+
+ALL_PHASES = set(range(1, 21))
 KERNEL_PHASES = set(range(2, 7))  # phase 2's scenes carry phases 3-6: they run together
 
 
 def parse_phases(text: str) -> set:
-    """'19', '2-6,12' or '1-19' -> the phases to run.  Phase 1 (the device
+    """'20', '2-6,12' or '1-20' -> the phases to run.  Phase 1 (the device
     and the build) always runs; phases 2-6 run together; phase 11 (its
     videos) reads phase 8's cached run."""
     phases = {1}
@@ -4451,7 +4896,7 @@ def main(argv: list | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="On-card smoke run of deepim_tpu_torch")
-    ap.add_argument("--phases", default="1-19", help="phases to run, e.g. 19 or 2-6,12 (default all, 1-19; phase 1 "
+    ap.add_argument("--phases", default="1-20", help="phases to run, e.g. 20 or 2-6,12 (default all, 1-20; phase 1 "
                     "always runs, 2-6 run together, 11 needs 8)")
     ap.add_argument("--dp-rank", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase 12
     args = ap.parse_args(argv)
@@ -4634,6 +5079,12 @@ def main(argv: list | None = None) -> int:
         for name, runs in drive_phase19(dev, card).items():
             extras.setdefault(name, {}).update(runs)
         log(f"[phase 19] took {time.perf_counter() - t19:.1f} s [{card}]")
+    if 20 in phases:
+        # 20. The image readers: a devkit and its re-encoded twin through both drivers.
+        t20 = time.perf_counter()
+        for name, runs in drive_phase20(dev, card).items():
+            extras.setdefault(name, {}).update(runs)
+        log(f"[phase 20] took {time.perf_counter() - t20:.1f} s [{card}]")
     log(f"[total] {time.perf_counter() - t_start:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
@@ -4655,8 +5106,10 @@ def main(argv: list | None = None) -> int:
     # 17's render of the flow2se3 targets (flow2se3_ keys), and tile_raster
     # at phase 18's track and fine-tune renders (track_learned_,
     # trackft_train_ keys) and phase 19's 480x640 training and test renders
-    # (a1_480x640_train_, a1_480x640_test_ keys).  Without phase 2, the first later figures of a
-    # kernel are its own.
+    # (a1_480x640_train_, a1_480x640_test_ keys), and csr_raster and
+    # tile_raster at phase 20's test renders with their launches over its
+    # driver runs (imread_ keys).  Without phase 2, the first later figures
+    # of a kernel are its own.
     base = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     for name, run in [("csr_raster", dp)] + [(n, next(iter(r.values()))) for n, r in extras.items()]:
         if run is not None and name not in results:

@@ -3,10 +3,10 @@ deepim_tpu/data/preprocess.py): image, depth and mask loading, the
 observed-mask strategies, random mask dilation, VOC background
 substitution, model-point sampling, and the training and test samples.
 
-Images are RGB float32 [0, 255], NCHW per sample; PNGs are decoded by
-utils/png.py and the VOC backgrounds (JPEGs) by utils/jpeg.py, which both
-return RGB directly.  Rendered colour images are not loaded: the engine
-re-renders from pose_rendered.  resize_to acts only when the devkit's
+Images are RGB float32 [0, 255], NCHW per sample; every image (colour,
+depth, label, VOC background) is read by utils/imread.py in the mode of
+its JAX site's cv2.imread call, PNG or JPEG by content.  Rendered colour
+images are not loaded: the engine re-renders from pose_rendered.  resize_to acts only when the devkit's
 resolution differs from SCALES; it samples where cv2.resize(fx=scale,
 fy=scale, INTER_LINEAR) samples, and resize_to_size where cv2.resize(im,
 (w, h), INTER_LINEAR) samples, on float32 arrays.
@@ -21,8 +21,7 @@ import numpy as np
 import torch
 
 from deepim_tpu_torch.config import Config
-from deepim_tpu_torch.utils.jpeg import read_jpeg
-from deepim_tpu_torch.utils.png import read_png
+from deepim_tpu_torch.utils.imread import imread
 
 
 class DecodeCache:
@@ -108,21 +107,17 @@ def _bilinear(im: np.ndarray, out_h: int, out_w: int, scale: float | None) -> np
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """Colour PNG -> (H, W, 3) float32 RGB (gray is repeated, alpha dropped)."""
-    im = read_png(path)
-    if im.dtype != np.uint8:
-        raise ValueError(f"{path}: a colour image must be 8-bit, got {im.dtype}")
-    if im.ndim == 2:
-        im = np.repeat(im[:, :, None], 3, axis=2)
-    return im[:, :, :3].astype(np.float32)
+    """A colour image -> (H, W, 3) float32 RGB, as cv2.imread(IMREAD_COLOR)
+    reads it (gray repeated, alpha dropped, 16 bits cut to 8)."""
+    return imread(path, "color").astype(np.float32)
 
 
 def load_depth(path: str, depth_factor: float) -> np.ndarray:
-    return read_png(path).astype(np.float32) / depth_factor
+    return imread(path, "unchanged").astype(np.float32) / depth_factor
 
 
 def load_label_mask(path: str, mask_idx: int) -> np.ndarray:
-    return (read_png(path) == mask_idx).astype(np.float32)
+    return (imread(path, "unchanged") == mask_idx).astype(np.float32)
 
 
 def load_gt_observed_mask(pair_rec: dict, depth_factor: float) -> np.ndarray:
@@ -201,7 +196,7 @@ class VOCBackgrounds:
         observed aspect (rounding up) and resized to the observed size, as
         the JAX package does with cv2.  A listed file that does not exist
         leaves the image (cv2.imread's None).  `cache` memoizes the decoded
-        JPEG by path: decoding is pure, so no draw and no sample changes."""
+        image by path: decoding is pure, so no draw and no sample changes."""
         if not self.bg_list:
             return im_observed
         h, w = im_observed.shape[:2]
@@ -209,7 +204,7 @@ class VOCBackgrounds:
         path = os.path.join(self.voc_root, f"JPEGImages/{idx}.jpg")
         if not os.path.isfile(path):
             return im_observed
-        bg = _cached(cache, ("voc", path), lambda: read_jpeg(path)).astype(np.float32)
+        bg = _cached(cache, ("voc", path), lambda: imread(path, "color")).astype(np.float32)
         ratio = h / w
         bh, bw = bg.shape[:2]
         if bh >= bw * ratio:

@@ -18,7 +18,8 @@ import numpy as np
 
 from deepim_tpu_torch.render.lighting import compute_vertex_normals
 from deepim_tpu_torch.utils.native import parse_obj_native
-from deepim_tpu_torch.utils.png import read_png, write_png
+from deepim_tpu_torch.utils.imread import imread
+from deepim_tpu_torch.utils.png import write_png
 
 
 @dataclass
@@ -143,19 +144,17 @@ def load_textured_mesh(model_dir: str, obj_name: str = "textured.obj",
     """Load a LINEMOD-style model directory into a vertex-coloured Mesh:
     a vertex-coloured OBJ (colours in [0, 1] or [0, 255]), an OBJ with a
     texture image (baked per vertex after splitting uv seams), or an
-    uncoloured OBJ (grey 128).  With `keep_texture`, a textured model also
-    keeps its seam-split uv and the texture as float32 RGB (any alpha
-    channel dropped) for rasterize_textured."""
+    uncoloured OBJ (grey 128).  The texture is read as cv2.imread(IMREAD_COLOR)
+    reads it (any PNG or JPEG, by content; RGB).  With `keep_texture`, a
+    textured model also keeps its seam-split uv and the texture as float32
+    RGB for rasterize_textured."""
     v, vt, fv, fvt, vc = parse_obj(os.path.join(model_dir, obj_name))
     tex_path = os.path.join(model_dir, tex_name)
     if vc.shape[0] == v.shape[0] and not os.path.exists(tex_path):
         scale = 255.0 if vc.max() <= 1.0 + 1e-6 else 1.0
         colors = (vc * scale).astype(np.float32)
     elif os.path.exists(tex_path):
-        tex = read_png(tex_path)
-        if tex.ndim == 2:
-            tex = np.repeat(tex[:, :, None], 3, axis=2)
-        tex = tex[:, :, :3]
+        tex = imread(tex_path, "color")
         v, vert_uv, fv = split_uv_seams(v, vt, fv, fvt)
         colors = _sample_texture(tex, vert_uv).astype(np.float32)
         return Mesh(vertices=v, faces=fv, colors=colors,

@@ -3,7 +3,8 @@
 Each module is a runnable CLI (`python -m deepim_tpu_torch.toolkit.<name>
 ...`, with `--device`, default cuda) mirroring one stage of the reference
 pipeline, with rendering done by the port's batched rasterizer on the card
-(_common.BatchRenderer) and PNGs read and written by utils/png.py:
+(_common.BatchRenderer), images read by utils/imread.py and PNGs written by
+utils/png.py:
 
 * adapt_devkit         — LM6d_devkit/LM6d_0_rescale_models.py, LM6d_1_calc_extents.py,
                          LM6d_2a_adapt_images.py (BOP-format source -> devkit)

@@ -16,7 +16,8 @@ Re-implements toolkit/LM6d_devkit/:
   -meta.mat (cls_indexes/boxes/poses, mm->m translation) per frame, and the
   per-class observed index lists.
 
-Masks are read and labels written with utils/png.py (8-bit gray PNGs).
+Masks are read as cv2.imread(IMREAD_UNCHANGED) reads them (utils/imread.py)
+and labels written with utils/png.py (8-bit gray PNGs).
 
     python -m deepim_tpu_torch.toolkit.adapt_devkit rescale-models --origin-models <bop>/models
         --out-models <devkit>/models [--classes C ...] [--device cuda|cpu]
@@ -38,7 +39,7 @@ import numpy as np
 from deepim_tpu_torch.device import resolve_device
 from deepim_tpu_torch.render.mesh import load_ply, write_obj
 from deepim_tpu_torch.toolkit._common import Devkit, resolve_classes, write_label_png
-from deepim_tpu_torch.utils.png import read_png
+from deepim_tpu_torch.utils.imread import imread
 
 
 def rescale_models(origin_models: str, out_models: str, classes: list[str] | None = None,
@@ -120,7 +121,7 @@ def adapt_images(origin_root: str, out_root: str, classes: list[str] | None = No
                 pose[:, 3] = np.asarray(inst["cam_t_m2c"]) / 1000.0
                 meta["poses"][:, :, ins_id] = pose
                 distances.append(pose[2, 3])
-                mask = read_png(osp.join(scene, f"mask/{int_im_id:06d}_{ins_id:06d}.png"))
+                mask = imread(osp.join(scene, f"mask/{int_im_id:06d}_{ins_id:06d}.png"), "unchanged")
                 label_by_cls[obj] = (mask > 0).astype(np.uint8)
             sio.savemat(osp.join(out_dir, f"{new_img_id:06d}-meta.mat"), meta)
 

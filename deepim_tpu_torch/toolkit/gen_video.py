@@ -34,9 +34,8 @@ from deepim_tpu_torch.engine.train import TrainState
 from deepim_tpu_torch.tools.train_net import build_mesh_bank, build_model
 from deepim_tpu_torch.utils.avi import check_avi_path, write_avi
 from deepim_tpu_torch.utils.edges import canny
-from deepim_tpu_torch.utils.jpeg import read_jpeg
+from deepim_tpu_torch.utils.imread import imread
 from deepim_tpu_torch.utils.logger import logger
-from deepim_tpu_torch.utils.png import read_png
 
 MODES = ("iter_zoom", "iter", "single")
 
@@ -76,24 +75,12 @@ def compose_frame(obs_rgb, rend_rgb, mask, zoom_obs, zoom_rend) -> np.ndarray:
 
 
 def images_to_video(image_paths: list[str], out_path: str, fps: float = 2.0) -> dict:
-    """Stack PNG and JPEG files (.png, .jpg, .jpeg: utils/png.py and
-    utils/jpeg.py, where the JAX package reads them with cv2.imread) into an
-    AVI (write_avi), each resized to the first one's size.  Other image
-    formats raise."""
-    for p in image_paths:
-        if not p.lower().endswith((".png", ".jpg", ".jpeg")):
-            raise ValueError(f"images_to_video reads PNG and JPEG files; {p!r} is neither")
-
-    def rgb(p):
-        if not p.lower().endswith(".png"):
-            return read_jpeg(p)
-        img = read_png(p)
-        if img.dtype != np.uint8:
-            raise ValueError(f"{p}: an 8-bit image is needed, got {img.dtype}")
-        return np.repeat(img[:, :, None], 3, axis=2) if img.ndim == 2 else img[:, :, :3]
-
-    h, w = rgb(image_paths[0]).shape[:2]
-    return write_avi(out_path, (_resize(rgb(p), h, w) for p in image_paths), fps)
+    """Stack image files into an AVI (write_avi), each read as the JAX
+    package reads it with cv2.imread (utils/imread.py, "color": PNG or
+    JPEG by content, whatever the name) and resized to the first one's
+    size.  Other image formats raise."""
+    h, w = imread(image_paths[0], "color").shape[:2]
+    return write_avi(out_path, (_resize(imread(p, "color"), h, w) for p in image_paths), fps)
 
 
 def gen_refine_video(cfg: Config, model, pairdb: list[dict], bank_arrays, out_path: str, num_pairs: int = 8,

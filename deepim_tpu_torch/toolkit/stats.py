@@ -22,7 +22,7 @@ from deepim_tpu_torch.data.pairdb import PairDB
 from deepim_tpu_torch.device import resolve_device
 from deepim_tpu_torch.geometry.rotations import mat2quat
 from deepim_tpu_torch.geometry.se3 import calc_RT_delta
-from deepim_tpu_torch.utils.png import read_png
+from deepim_tpu_torch.utils.imread import imread
 
 
 def stat_se3(pairdb: list[dict], rot_coord: str = "CAMERA", device="cuda") -> tuple[np.ndarray, np.ndarray]:
@@ -51,7 +51,7 @@ def stat_depth(pairdb: list[dict]) -> tuple[float, float]:
     files = sorted({p["depth_rendered"] for p in pairdb})
     max_val, min_val = -1.0, float("inf")
     for f in files:
-        d = read_png(f).astype(np.float32)
+        d = imread(f, "unchanged").astype(np.float32)
         max_val = max(max_val, float(d.max()))
         min_val = min(min_val, float(d.min()))
     print(f"max of depth value is {max_val}, min of depth value is {min_val}")

@@ -62,7 +62,8 @@ from deepim_tpu_torch.toolkit._common import (
     write_label_png,
     write_pose_file_with_class,
 )
-from deepim_tpu_torch.utils.png import read_png, write_png
+from deepim_tpu_torch.utils.imread import imread
+from deepim_tpu_torch.utils.png import write_png
 
 CENTER_MARGIN = 48  # ds_0:230 (tighter than the real pipeline's 16)
 BRIGHTNESS_RATIOS = (0.4, 0.3, 0.2)  # ds_1:86
@@ -254,8 +255,8 @@ def check(syn_root: str, classes: list[str] | None = None, image_set: str = "tra
             if missing:
                 report["missing"].append((obs_idx, missing))
                 continue
-            depth = read_png(files["gt_observed_depth"])
-            label = read_png(files["observed_label"])
+            depth = imread(files["gt_observed_depth"], "unchanged")
+            label = imread(files["observed_label"], "unchanged")
             iou = np.logical_and(depth > 0, label > 0).sum() / max(
                 np.logical_or(depth > 0, label > 0).sum(), 1
             )
@@ -265,8 +266,8 @@ def check(syn_root: str, classes: list[str] | None = None, image_set: str = "tra
             load_pose_file(files["gt_observed_pose"])
             if vis_dir and vi < max_vis:
                 os.makedirs(vis_dir, exist_ok=True)
-                obs = read_png(files["observed_color"])
-                rend = read_png(files["rendered_color"])
+                obs = imread(files["observed_color"], "color")
+                rend = imread(files["rendered_color"], "color")
                 diff = np.abs(obs.astype(np.int16) - rend.astype(np.int16)).astype(np.uint8)
                 write_png(os.path.join(vis_dir, f"{cls_name}_{prefix}_check.png"),
                           np.concatenate([obs, rend, diff], axis=1), PNG_FILTER)

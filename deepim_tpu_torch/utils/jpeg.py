@@ -1,27 +1,46 @@
-"""Baseline JPEG decoding in numpy: the port's counterpart of
-cv2.imread(path, cv2.IMREAD_COLOR), so the port needs no image package.
+"""JPEG decoding in numpy: the port's counterpart of cv2.imread on JPEG
+files, so the port needs no image package.
 
-read_jpeg returns (H, W, 3) uint8 RGB.  It decodes sequential Huffman-coded
-8-bit files (SOF0 and SOF1) with one component (gray, repeated to three
-channels) or three (YCbCr, or RGB where an Adobe marker or the component
-ids say so), any integer sampling factors (4:4:4, 4:2:2, 4:2:0, 4:4:0,
-4:1:1) on sizes that are not a multiple of the MCU, interleaved or
-per-component scans, restart intervals (DRI, RSTn) and byte stuffing; APPn
-and COM segments are skipped, and an Exif orientation is applied as cv2
-applies it.  Progressive, lossless, arithmetic-coded, 12-bit and
-four-component files raise ValueError naming the file.
+decode_jpeg and read_jpeg decode Huffman-coded 8-bit files, sequential
+(SOF0, SOF1) or progressive (SOF2), with one component (gray), three
+(YCbCr, or RGB where an Adobe marker or the component ids say so) or four
+(CMYK, or YCCK where an Adobe marker's transform is not 0), any integer
+sampling factors (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1) on sizes that are not
+a multiple of the MCU, interleaved or per-component scans, restart
+intervals (DRI, RSTn) and byte stuffing.  Progressive scans are DC first
+and refinement scans, AC spectral selection and successive-approximation
+refinement with EOB runs, all kept in one whole-image coefficient array,
+so a complete progressive file yields the quantised coefficients of its
+baseline twin and the same pixels.  APPn and COM segments are skipped.
+
+Two modes, as cv2.imread's: "color" (IMREAD_COLOR) returns (H, W, 3) uint8
+RGB (gray repeated to three channels) with an Exif orientation applied as
+cv2 applies it; "unchanged" (IMREAD_UNCHANGED) returns gray as (H, W),
+everything else as (H, W, 3) RGB, and applies no orientation.  Four
+components convert as cv2 converts libjpeg's CMYK output (YCCK first goes
+to CMYK by libjpeg's ycck_cmyk_convert): each of C, M, Y becomes
+k - ((255 - x) * k >> 8), giving R, G, B.
+
+Lossless (SOF3), arithmetic-coded (SOF9-SOF15, DAC), hierarchical and
+12-bit files raise ValueError naming the file and its kind.  So does a
+progressive file whose scans leave bits of the DC or the first nine AC
+coefficients of a component unknown (a scan script that stops short):
+libjpeg-turbo then smooths the blocks (jdcoefct.c decompress_smooth_data),
+which this module does not reproduce.
 
 The arithmetic is libjpeg-turbo's default decompression, which cv2 uses:
 the ISLOW integer IDCT (jidctint.c) with its range-limit table, "fancy"
 triangle upsampling for h2v1, h2v2 and h1v2 chroma (jdsample.c; box
 replication for the other factors and for chroma 2 samples wide or
 narrower) and the fixed-point YCbCr -> RGB tables (jdcolor.c).  The result
-equals cv2.imread's bit for bit (tests/test_torch_jpeg.py).
+equals cv2.imread's bit for bit (tests/test_torch_jpeg.py,
+tests/test_torch_imread.py).
 
 Huffman codes are read through a 65,536-entry lookup table indexed by the
 next 16 bits of the stream, each symbol and its extra bits from one 32-bit
-window (computed for every bit position of the scan at once); the IDCT,
-upsampling and colour conversion run over all blocks at once.
+window (computed for every bit position of the scan at once); the entropy
+decoding is Python over those lists, the IDCT, upsampling and colour
+conversion run over all blocks at once.
 """
 from __future__ import annotations
 
@@ -42,12 +61,16 @@ _MASK = [(1 << s) - 1 for s in range(17)]
 _HALF = [1 << (s - 1) if s else 0 for s in range(17)]
 
 _UNSUPPORTED_SOF = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+    0xC3: "lossless", 0xC5: "differential sequential",
     0xC6: "differential progressive", 0xC7: "differential lossless", 0xC9: "arithmetic-coded sequential",
     0xCA: "arithmetic-coded progressive", 0xCB: "arithmetic-coded lossless",
     0xCD: "arithmetic-coded differential sequential", 0xCE: "arithmetic-coded differential progressive",
     0xCF: "arithmetic-coded differential lossless",
 }
+MODES = ("color", "unchanged")  # cv2.imread's IMREAD_COLOR and IMREAD_UNCHANGED
+# libjpeg-turbo's block smoothing looks at the DC and the first nine AC
+# coefficients (jdcoefct.c SAVED_COEFS).
+_SMOOTHED = 10
 _SCAN_END = re.compile(rb"\xff(?![\x00\xd0-\xd7\xff])")
 _RESTART = re.compile(rb"\xff+[\xd0-\xd7]")
 
@@ -99,6 +122,7 @@ class _Component:
         self.base = 0             # offset of its first coefficient in the flat store
         self.blocks_w = self.blocks_h = 0   # allocated blocks (whole MCUs)
         self.width = self.height = 0        # downsampled size in samples
+        self.coef_bits = [-1] * 64  # progressive: lowest bit yet known of each zig-zag coefficient, -1 none
 
 
 def _huffman_table(counts: bytes, symbols: bytes, name: str) -> list:
@@ -129,10 +153,18 @@ def _windows(data: bytes) -> list:
 
 
 def _exif_orientation(seg: bytes) -> int:
-    """Orientation tag (0x0112) of an APP1 Exif segment's IFD0, 1 if absent."""
-    if not seg.startswith(b"Exif\x00\x00") or len(seg) < 14:
+    """Orientation tag of an APP1 Exif segment, 1 if absent."""
+    if not seg.startswith(b"Exif\x00\x00"):
         return 1
-    tiff = seg[6:]
+    return tiff_orientation(seg[6:])
+
+
+def tiff_orientation(tiff: bytes) -> int:
+    """Orientation tag (0x0112) in IFD0 of Exif's TIFF structure (an APP1
+    segment's body after its "Exif" header, a PNG eXIf chunk), 1 if
+    absent."""
+    if len(tiff) < 8:
+        return 1
     order = {b"II": "<", b"MM": ">"}.get(tiff[:2])
     if order is None:
         return 1
@@ -150,7 +182,7 @@ def _exif_orientation(seg: bytes) -> int:
     return 1
 
 
-def _apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
     """cv2's ExifTransform for orientations 1-8 (others leave the image)."""
     if orientation in (5, 6, 7, 8):
         img = img.transpose(1, 0, 2)
@@ -233,6 +265,18 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
+def _ycck_to_cmyk(y, cb, cr, k) -> list:
+    """jdcolor.c ycck_cmyk_convert: each colour channel is 255 minus the
+    YCbCr -> RGB value, clamped; K passes through."""
+    return [255 - c for c in np.moveaxis(_ycc_to_rgb(y, cb, cr), -1, 0)] + [k]
+
+
+def _cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+    """cv2's conversion of libjpeg's CMYK output: x -> k - ((255 - x) * k >> 8)."""
+    k = k.astype(np.int32)
+    return np.stack([k - (((255 - x.astype(np.int32)) * k) >> 8) for x in (c, m, y)], axis=-1).astype(np.uint8)
+
+
 class _Decoder:
     def __init__(self, data: bytes, name: str):
         self.data, self.name = data, name
@@ -242,6 +286,7 @@ class _Decoder:
         self.restart = 0
         self.comps: list[_Component] = []
         self.coef: list | None = None
+        self.progressive = False
         self.jfif = False
         self.adobe_transform: int | None = None
         self.orientation = 1
@@ -249,7 +294,7 @@ class _Decoder:
     def error(self, what: str) -> ValueError:
         return ValueError(f"{self.name}: {what}")
 
-    def decode(self) -> np.ndarray:
+    def decode(self, mode: str) -> np.ndarray:
         data = self.data
         if data[:2] != b"\xff\xd8":
             raise self.error("not a JPEG file (no SOI marker)")
@@ -274,11 +319,11 @@ class _Decoder:
             if len(seg) != length - 2:
                 raise self.error("truncated JPEG segment")
             pos += length
-            if marker in (0xC0, 0xC1):
-                self.frame(seg)
+            if marker in (0xC0, 0xC1, 0xC2):
+                self.frame(seg, progressive=marker == 0xC2)
             elif marker in _UNSUPPORTED_SOF:
                 raise self.error(f"{_UNSUPPORTED_SOF[marker]} JPEG (SOF{marker - 0xC0}) is not supported: "
-                                 "baseline and extended sequential Huffman-coded files only")
+                                 "Huffman-coded sequential and progressive files only")
             elif marker == 0xCC:
                 raise self.error("arithmetic-coded JPEG (DAC) is not supported")
             elif marker == 0xC4:
@@ -297,9 +342,14 @@ class _Decoder:
                 self.adobe_transform = seg[11]
         if self.coef is None:
             raise self.error("JPEG file holds no image data")
-        return _apply_orientation(self.output(), self.orientation)
+        if self.progressive:
+            self.check_no_smoothing()
+        img = self.output()
+        if mode == "unchanged":
+            return img[:, :, 0].copy() if len(self.comps) == 1 else img
+        return apply_orientation(img, self.orientation)
 
-    def frame(self, seg: bytes) -> None:
+    def frame(self, seg: bytes, progressive: bool) -> None:
         if self.comps:
             raise self.error("more than one frame")
         precision, height, width, n = struct.unpack(">BHHB", seg[:6])
@@ -307,9 +357,9 @@ class _Decoder:
             raise self.error(f"{precision}-bit JPEG is not supported (8-bit only)")
         if height == 0 or width == 0:
             raise self.error("JPEG with a zero (DNL-defined) size is not supported")
-        if n not in (1, 3):
-            raise self.error(f"JPEG with {n} components is not supported (1 or 3)")
-        self.height, self.width = height, width
+        if n not in (1, 3, 4):
+            raise self.error(f"JPEG with {n} components is not supported (1, 3 or 4)")
+        self.height, self.width, self.progressive = height, width, progressive
         for i in range(n):
             cid, hv, tq = seg[6 + 3 * i:9 + 3 * i]
             if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4):
@@ -349,6 +399,11 @@ class _Decoder:
             self.qt[tq] = table
             pos += 1 + size
 
+    def table(self, tables: dict, index: int) -> list:
+        if index not in tables:
+            raise self.error("scan uses an undefined Huffman table")
+        return tables[index]
+
     def scan(self, seg: bytes, pos: int) -> int:
         """Decode one scan whose entropy-coded data starts at `pos`; returns
         the position of the marker that ends it."""
@@ -356,16 +411,16 @@ class _Decoder:
             raise self.error("scan before the frame header")
         ns = seg[0]
         by_id = {c.id: c for c in self.comps}
-        comps, dcs, acs = [], [], []
+        comps, tds, tas = [], [], []
         for i in range(ns):
             cs, td_ta = seg[1 + 2 * i:3 + 2 * i]
             if cs not in by_id:
                 raise self.error(f"scan names an unknown component {cs}")
             comps.append(by_id[cs])
-            if td_ta >> 4 not in self.dc or td_ta & 15 not in self.ac:
-                raise self.error("scan uses an undefined Huffman table")
-            dcs.append(self.dc[td_ta >> 4])
-            acs.append(self.ac[td_ta & 15])
+            tds.append(td_ta >> 4)
+            tas.append(td_ta & 15)
+        ss, se, ah_al = seg[1 + 2 * ns:4 + 2 * ns]
+        ah, al = ah_al >> 4, ah_al & 15
         end_m = _SCAN_END.search(self.data, pos)
         end = end_m.start() if end_m else len(self.data)
         segments = [s.rstrip(b"\xff").replace(b"\xff\x00", b"\xff")
@@ -392,13 +447,30 @@ class _Decoder:
                         cols.append(c.base + (((my * c.v + v) * c.blocks_w) + mx * c.h + h) * 64)
                         slots.append(j)
             bases = np.stack(cols, axis=1)
-        self._entropy_decode(win, starts, bases.ravel().tolist(), slots * bases.shape[0], dcs, acs,
-                             len(slots), ns)
+        blocks = (win, starts, bases.ravel().tolist(), slots * bases.shape[0], self.restart * len(slots))
+        if not self.progressive:
+            self._sequential(*blocks, [self.table(self.dc, t) for t in tds],
+                             [self.table(self.ac, t) for t in tas], ns)
+            return end
+        if not (ss <= se <= 63 and (ss == 0) == (se == 0)) or (ss and ns != 1) or ah > 13 or al > 13:
+            raise self.error(f"bad progressive scan (Ss {ss}, Se {se}, Ah {ah}, Al {al}, {ns} components)")
+        for c in comps:
+            c.coef_bits[ss:se + 1] = [al] * (se - ss + 1)
+        try:
+            if ss == 0 and ah == 0:
+                self._dc_first(*blocks, [self.table(self.dc, t) for t in tds], ns, al)
+            elif ss == 0:
+                self._dc_refine(*blocks, al)
+            elif ah == 0:
+                self._ac_first(*blocks, self.table(self.ac, tas[0]), ss, se, al)
+            else:
+                self._ac_refine(*blocks, self.table(self.ac, tas[0]), ss, se, al)
+        except IndexError:
+            raise self.error("corrupt JPEG data (entropy-coded data ends early)") from None
         return end
 
-    def _entropy_decode(self, win, starts, bases, slots, dcs, acs, per_mcu, ns) -> None:
+    def _sequential(self, win, starts, bases, slots, ri, dcs, acs, ns) -> None:
         coef, zz, mask, half = self.coef, _ZIGZAG, _MASK, _HALF
-        ri = self.restart * per_mcu
         pred = [0] * ns
         pos, seg = 0, 0
         try:
@@ -447,8 +519,156 @@ class _Decoder:
         except IndexError:
             raise self.error("corrupt JPEG data (entropy-coded data ends early)") from None
 
+    # Progressive scans (jdphuff.c).  At a restart marker the DC predictions
+    # and the EOB run reset and reading moves to the next interval's data.
+
+    def _dc_first(self, win, starts, bases, slots, ri, dcs, ns, al) -> None:
+        coef, mask, half = self.coef, _MASK, _HALF
+        pred = [0] * ns
+        pos, seg = 0, 0
+        for i in range(len(bases)):
+            if ri and i and i % ri == 0:
+                seg += 1
+                pos = starts[seg] if seg < len(starts) else pos
+                pred = [0] * ns
+            j = slots[i]
+            w = win[pos]
+            e = dcs[j][w >> 16]
+            if not e:
+                raise self.error("corrupt JPEG data (bad Huffman code)")
+            n, s = e >> 8, e & 15
+            if s:
+                v = (w >> (32 - n - s)) & mask[s]
+                if v < half[s]:
+                    v -= mask[s]
+                pred[j] += v
+                n += s
+            pos += n
+            coef[bases[i]] = pred[j] << al
+
+    def _dc_refine(self, win, starts, bases, slots, ri, al) -> None:
+        coef, p1 = self.coef, 1 << al
+        pos, seg = 0, 0
+        for i in range(len(bases)):
+            if ri and i and i % ri == 0:
+                seg += 1
+                pos = starts[seg] if seg < len(starts) else pos
+            if win[pos] >> 31:
+                coef[bases[i]] |= p1
+            pos += 1
+
+    def _ac_first(self, win, starts, bases, slots, ri, ac, ss, se, al) -> None:
+        coef, zz, mask, half = self.coef, _ZIGZAG, _MASK, _HALF
+        pos, seg, eobrun = 0, 0, 0
+        for i in range(len(bases)):
+            if ri and i and i % ri == 0:
+                seg += 1
+                pos = starts[seg] if seg < len(starts) else pos
+                eobrun = 0
+            if eobrun:
+                eobrun -= 1
+                continue
+            base = bases[i]
+            k = ss
+            while k <= se:
+                w = win[pos]
+                e = ac[w >> 16]
+                if not e:
+                    raise self.error("corrupt JPEG data (bad Huffman code)")
+                n, rs = e >> 8, e & 255
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    v = (w >> (32 - n - s)) & mask[s]
+                    if v < half[s]:
+                        v -= mask[s]
+                    coef[base + zz[k]] = v << al
+                    pos += n + s
+                elif r == 15:
+                    pos += n
+                    k += 15
+                else:
+                    eobrun = (1 << r) + ((w >> (32 - n - r)) & mask[r]) - 1 if r else 0
+                    pos += n + r
+                    break
+                k += 1
+
+    def _ac_refine(self, win, starts, bases, slots, ri, ac, ss, se, al) -> None:
+        coef, zz, mask = self.coef, _ZIGZAG, _MASK
+        p1, m1 = 1 << al, -1 << al
+        band = zz[ss:se + 1]
+        pos, seg, eobrun = 0, 0, 0
+        for i in range(len(bases)):
+            if ri and i and i % ri == 0:
+                seg += 1
+                pos = starts[seg] if seg < len(starts) else pos
+                eobrun = 0
+            base = bases[i]
+            k = ss
+            if not eobrun:
+                while k <= se:
+                    w = win[pos]
+                    e = ac[w >> 16]
+                    if not e:
+                        raise self.error("corrupt JPEG data (bad Huffman code)")
+                    n, rs = e >> 8, e & 255
+                    r, s = rs >> 4, rs & 15
+                    pos += n
+                    if s:
+                        s = p1 if win[pos] >> 31 else m1
+                        pos += 1
+                    elif r != 15:
+                        eobrun = (1 << r) + ((win[pos] >> (32 - r)) & mask[r]) if r else 1
+                        pos += r
+                        break
+                    # Append correction bits to the nonzero coefficients up
+                    # to the r-th zero one (the new coefficient's place).
+                    while k <= se:
+                        at = base + zz[k]
+                        c = coef[at]
+                        if c:
+                            if win[pos] >> 31 and not c & p1:
+                                coef[at] = c + p1 if c >= 0 else c + m1
+                            pos += 1
+                        elif r:
+                            r -= 1
+                        else:
+                            break
+                        k += 1
+                    if s:
+                        coef[base + zz[k]] = s
+                    k += 1
+            if eobrun:
+                # The rest of the band lies in the EOB run: a correction bit
+                # for each nonzero coefficient.
+                for z in band[k - ss:]:
+                    c = coef[base + z]
+                    if c:
+                        if win[pos] >> 31 and not c & p1:
+                            coef[base + z] = c + p1 if c >= 0 else c + m1
+                        pos += 1
+                eobrun -= 1
+
+    def check_no_smoothing(self) -> None:
+        """Raise where libjpeg-turbo would smooth the blocks (jdcoefct.c
+        smoothing_ok): every component's DC at least partly known, the DC
+        and first nine AC quantisers nonzero, and some of those AC
+        coefficients not known to their last bit."""
+        for c in self.comps:
+            q = self.qt.get(c.tq)
+            if q is None or not all(q[_ZIGZAG[k]] for k in range(_SMOOTHED)) or c.coef_bits[0] < 0:
+                return
+        gaps = {c.id: c.coef_bits[:_SMOOTHED] for c in self.comps if any(c.coef_bits[1:_SMOOTHED])}
+        if gaps:
+            raise self.error("progressive JPEG whose scans leave low-frequency coefficient bits unknown "
+                             f"(lowest known bit of zig-zag coefficients 0-9 by component: {gaps}; -1 never "
+                             "sent): cv2's libjpeg-turbo smooths such blocks, which this decoder does not "
+                             "reproduce")
+
     def colour_space(self) -> str:
-        """jdapimin.c default_decompress_parms for three components."""
+        """jdapimin.c default_decompress_parms for three and four components."""
+        if len(self.comps) == 4:
+            return "ycck" if self.adobe_transform not in (None, 0) else "cmyk"
         if self.jfif:
             return "ycc"
         if self.adobe_transform is not None:
@@ -457,6 +677,7 @@ class _Decoder:
         return "rgb" if ids == [82, 71, 66] else "ycc"
 
     def output(self) -> np.ndarray:
+        """(H, W, 3) uint8 RGB, gray repeated, before any orientation."""
         coef = np.array(self.coef, np.int32).reshape(-1, 64)
         planes = []
         for c in self.comps:
@@ -471,18 +692,26 @@ class _Decoder:
             planes.append(_upsample(plane, self.hmax // c.h, self.vmax // c.v)[:self.height, :self.width])
         if len(planes) == 1:
             return np.repeat(planes[0][:, :, None], 3, axis=2)
-        if self.colour_space() == "rgb":
+        space = self.colour_space()
+        if space == "rgb":
             return np.stack(planes, axis=-1)
-        return _ycc_to_rgb(*planes)
+        if space == "ycc":
+            return _ycc_to_rgb(*planes)
+        if space == "ycck":
+            planes = _ycck_to_cmyk(*planes)
+        return _cmyk_to_rgb(*planes)
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """JPEG bytes -> (H, W, 3) uint8 RGB (see the module docstring)."""
-    return _Decoder(data, name).decode()
+def decode_jpeg(data: bytes, name: str = "<bytes>", mode: str = "color") -> np.ndarray:
+    """JPEG bytes -> the array cv2.imread gives in `mode` ("color" or
+    "unchanged"), colour channels in RGB order (see the module docstring)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    return _Decoder(data, name).decode(mode)
 
 
 def read_jpeg(path: str) -> np.ndarray:
     """A JPEG file -> (H, W, 3) uint8 RGB, cv2.imread(path,
-    IMREAD_COLOR)[..., ::-1] for the files this module decodes."""
+    IMREAD_COLOR)[..., ::-1]."""
     with open(path, "rb") as f:
         return decode_jpeg(f.read(), path)

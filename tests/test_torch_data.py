@@ -40,7 +40,9 @@ from deepim_tpu_torch.data import preprocess as t_pre  # noqa: E402
 from deepim_tpu_torch.render import mesh as t_mesh  # noqa: E402
 from deepim_tpu_torch.render.rasterizer import RasterConfig  # noqa: E402
 from deepim_tpu_torch.tools.synth_data import generate_dataset as t_generate  # noqa: E402
+from deepim_tpu_torch.utils.imread import imread  # noqa: E402
 from deepim_tpu_torch.utils.png import read_png, write_png  # noqa: E402
+from test_torch_imread import png_bytes  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -171,19 +173,29 @@ def _chunk_data(path, ctype):
 
 
 def test_read_png_rejects_unsupported(tmp_path):
-    """Interlaced images and colour types outside the devkit's raise."""
+    """An Adam7-interlaced gray image and a 16-bit RGB one (both raised
+    before every PNG type was read) decode exactly as cv2.imread reads
+    them; a WEBP file cv2 writes, under a .png name, raises in read_png
+    (no PNG) and in imread, which names its format."""
+    gray = _test_images()["gray"]
     path = str(tmp_path / "a.png")
-    write_png(path, _test_images()["gray"])
-    data = bytearray(Path(path).read_bytes())
-    data[28] = 1  # IHDR interlace byte
-    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
-    Path(path).write_bytes(bytes(data))
-    with pytest.raises(ValueError, match="interlaced"):
-        read_png(path)
+    Path(path).write_bytes(png_bytes(gray[:, :, None], 0, 8, interlace=True))
+    assert Path(path).read_bytes()[28] == 1  # IHDR interlace byte: Adam7
+    np.testing.assert_array_equal(read_png(path), gray)
+    np.testing.assert_array_equal(read_png(path), cv2.imread(path, cv2.IMREAD_UNCHANGED))
     rgb16 = str(tmp_path / "rgb16.png")
-    cv2.imwrite(rgb16, (np.random.RandomState(0).rand(8, 8, 3) * 65535).astype(np.uint16))
-    with pytest.raises(ValueError, match="not supported"):
-        read_png(rgb16)
+    img16 = (np.random.RandomState(0).rand(8, 8, 3) * 65535).astype(np.uint16)
+    cv2.imwrite(rgb16, img16)
+    got = read_png(rgb16)
+    assert got.dtype == np.uint16
+    np.testing.assert_array_equal(got, img16[:, :, ::-1])
+    np.testing.assert_array_equal(imread(rgb16, "color"), cv2.imread(rgb16, cv2.IMREAD_COLOR)[:, :, ::-1])
+    webp = str(tmp_path / "w.png")
+    Path(webp).write_bytes(cv2.imencode(".webp", _test_images()["rgb"])[1].tobytes())
+    with pytest.raises(ValueError, match="not a PNG file"):
+        read_png(webp)
+    with pytest.raises(ValueError, match=r"w\.png: a WEBP file"):
+        imread(webp, "color")
 
 
 @pytest.mark.parametrize("target", [(48, 64), (96, 128), (40, 1000)])
@@ -405,6 +417,9 @@ def test_generate_dataset_filters_rows_as_cv2(devkit, tmp_path, kind):
 
 
 def test_load_image_rgb_gray_and_depth(tmp_path):
+    """A gray colour file, a 16-bit depth, and the depth read as a colour
+    image (cv2's IMREAD_COLOR keeps each sample's high byte; the port raised
+    on it before it read as cv2 does): each equal to the JAX package's."""
     gray = (np.arange(48).reshape(6, 8) * 5).astype(np.uint8)
     cv2.imwrite(str(tmp_path / "g.png"), gray)
     np.testing.assert_array_equal(t_pre.load_image_rgb(str(tmp_path / "g.png")),
@@ -413,5 +428,5 @@ def test_load_image_rgb_gray_and_depth(tmp_path):
     cv2.imwrite(str(tmp_path / "d.png"), d)
     np.testing.assert_array_equal(t_pre.load_depth(str(tmp_path / "d.png"), 1000.0),
                                   j_pre.load_depth(str(tmp_path / "d.png"), 1000.0))
-    with pytest.raises(ValueError, match="8-bit"):
-        t_pre.load_image_rgb(str(tmp_path / "d.png"))
+    np.testing.assert_array_equal(t_pre.load_image_rgb(str(tmp_path / "d.png")),
+                                  j_pre.load_image_rgb(str(tmp_path / "d.png")))

@@ -16,6 +16,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -51,7 +52,9 @@ import deepim_tpu_torch.tools.test_net as t_test_net  # noqa: E402
 from deepim_tpu_torch.tools.test_net import test_deepim as t_test_deepim  # noqa: E402
 from deepim_tpu_torch.tools.train_net import build_mesh_bank, build_model  # noqa: E402
 from deepim_tpu_torch.utils.avi import read_avi_index  # noqa: E402
+from deepim_tpu_torch.utils.imread import image_format  # noqa: E402
 from deepim_tpu_torch.utils.logger import logger as t_logger  # noqa: E402
+from test_torch_imread import png_bytes  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -284,6 +287,52 @@ def test_test_deepim_end_to_end(devkit, weights, tmp_path, monkeypatch):
     save_checkpoint(str(tmp_path / "wrong" / PREFIX), TEST_EPOCH, TrainState(wrong, None))
     with pytest.raises(RuntimeError, match="size mismatch"):
         t_test_deepim(tc, output_dir=str(tmp_path / "wrong"), batch_size=4, device="cpu")
+
+
+def test_test_deepim_variant_devkit_equals_jax(devkit, weights, tmp_path, monkeypatch):
+    """test_deepim in both packages (fp32 networks, as in
+    test_test_deepim_end_to_end) on a copy of the devkit with the same file
+    names and other encodings: every colour file a progressive JPEG, every
+    depth an Adam7 16-bit gray PNG, every label an Adam7 8-bit gray PNG.
+    The JAX package reads them with cv2.imread, the port with its own
+    decoders: poses to 2e-4 per iteration and equal tables."""
+    variant = tmp_path / "variant"
+    shutil.copytree(devkit, variant, ignore=shutil.ignore_patterns("cache", "output"))
+    kinds = {"color": 0, "depth": 0, "label": 0}
+    for path in sorted(variant.glob("data/*/*/*.png")):
+        kind = path.stem.rsplit("-", 1)[-1]
+        img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        if kind == "color":
+            data = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
+        elif kind in ("depth", "label"):
+            data = png_bytes(img[:, :, None], 0, 16 if kind == "depth" else 8, interlace=True)
+        else:
+            continue
+        path.write_bytes(data)
+        kinds[kind] += 1
+    assert min(kinds.values()) >= 10, kinds
+    params, model = weights
+    jc, tc = _cfgs(str(variant), FAST_TEST=True)
+    _, tdbs = _class_dbs(jc, tc, str(variant))
+    rec = tdbs[0][1][0]
+    assert rec["image_observed"].startswith(str(variant))
+    assert image_format(Path(rec["image_observed"]).read_bytes()) == "JPEG"
+    out_t = tmp_path / "port"
+    save_checkpoint(str(out_t / PREFIX), TEST_EPOCH, TrainState(model, None, 11))
+    _fp32_jax_networks(monkeypatch)
+    monkeypatch.setattr(t_test_net, "EVAL_DTYPE", torch.float32)
+    out_j = tmp_path / "jax"
+    j_res = j_test_net.test_deepim(jc, output_dir=str(out_j), params=params, batch_size=4)
+    t_res = t_test_deepim(tc, output_dir=str(out_t), batch_size=4, device="cpu")
+    assert t_res["run"]["pairs"] == 10 and t_res["run"]["raster_dropped"] == 0
+    _assert_tables(j_res, t_res)
+    with open(out_j / "results_pose.pkl", "rb") as f:
+        j_est, _ = pickle.load(f)
+    with open(out_t / "results_pose.pkl", "rb") as f:
+        t_est, _ = pickle.load(f)
+    for ci in range(len(CLASSES)):
+        for it in range(4):
+            np.testing.assert_allclose(np.stack(t_est[ci][it]), np.stack(j_est[ci][it]), atol=2e-4, rtol=0)
 
 
 def test_test_deepim_bf16_default_equals_jax(devkit, weights, tmp_path, record_property):

@@ -1,8 +1,10 @@
 """The port's host readers on the CPU: utils/jpeg.py against cv2.imread on
-files cv2.imwrite writes (bit for bit, on every encoding listed below);
-VOC background substitution in make_train_sample against the JAX
-package's, with the same generators; images_to_video on JPEG frames
-against the JAX package's; and the native mesh/points reader
+files cv2.imwrite writes (bit for bit, on every encoding listed below;
+tests/test_torch_imread.py holds the progressive and four-component
+files); VOC background substitution in make_train_sample against the JAX
+package's, with the same generators, on baseline pools and on a pool of
+progressive and CMYK files; images_to_video on JPEG frames, baseline and
+progressive, against the JAX package's; and the native mesh/points reader
 (utils/native.py) against the port's Python parse and the JAX package's.
 
 Tolerances: decoded images exactly equal to cv2.imread's.  A substituted
@@ -21,6 +23,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 REPO = Path(__file__).resolve().parents[1]
 if str(REPO) not in sys.path:
@@ -135,11 +138,17 @@ def test_decode_exif_orientation_equals_cv2(tmp_path, order):
 
 
 def test_decode_rejects_what_it_does_not_decode(tmp_path):
-    """A progressive file raises, naming the file and its kind; so does a
-    file that is no JPEG and one cut short in its header."""
-    path = _write(tmp_path / "p.jpg", _image("noise", 32, 40), cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
-    with pytest.raises(ValueError, match=r"p\.jpg: progressive JPEG \(SOF2\)"):
-        read_jpeg(path)
+    """A progressive file (raised before progressive decoding) now decodes
+    equal to cv2.imread; an arithmetic-coded one (a baseline file whose
+    SOF0 marker is rewritten as SOF9) raises, naming the file and its
+    kind; so does a file that is no JPEG and one cut short in its header."""
+    _assert_like_cv2(_write(tmp_path / "p.jpg", _image("noise", 32, 40), cv2.IMWRITE_JPEG_PROGRESSIVE, 1))
+    data = Path(_write(tmp_path / "a.jpg", _image("noise", 32, 40))).read_bytes()
+    at = data.find(b"\xff\xc0")
+    path = tmp_path / "sof9.jpg"
+    path.write_bytes(data[:at] + b"\xff\xc9" + data[at + 2:])
+    with pytest.raises(ValueError, match=r"sof9\.jpg: arithmetic-coded sequential JPEG \(SOF9\)"):
+        read_jpeg(str(path))
     with pytest.raises(ValueError, match="not a JPEG"):
         decode_jpeg(b"\x89PNG\r\n", "x.png")
     data = Path(_write(tmp_path / "b.jpg", _image("noise", 32, 40))).read_bytes()
@@ -228,6 +237,39 @@ def test_voc_samples_equal_jax(voc_devkit):
     assert all(("voc", os.path.join(t_voc.voc_root, f"JPEGImages/{b}.jpg")) in cache.data for b in t_voc.bg_list)
 
 
+def test_voc_progressive_and_cmyk_samples_equal_jax(voc_devkit, tmp_path):
+    """make_train_sample as in test_voc_samples_equal_jax, drawing from a
+    pool of a progressive JPEG with a restart interval and a progressive
+    CMYK one (PIL), at two of that pool's sizes: every key of every sample
+    exactly equal to the JAX package's, both files drawn, and each cached
+    background equal to cv2.imread's."""
+    voc = tmp_path / "VOCdevkit" / "VOC2012"
+    (voc / "ImageSets" / "Main").mkdir(parents=True)
+    (voc / "JPEGImages").mkdir()
+    _write(voc / "JPEGImages" / "prog.jpg", _image("gradient", 75, 100, 20), cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+           cv2.IMWRITE_JPEG_RST_INTERVAL, 2)
+    Image.fromarray(_image("gradient", 90, 70, 21)).convert("CMYK").save(voc / "JPEGImages" / "cmyk.jpg", "JPEG",
+                                                                        quality=90, progressive=True)
+    (voc / "ImageSets" / "Main" / "diningtable_trainval.txt").write_text("prog  1\ncmyk  1\n")
+    jc, tc = _voc_cfgs(voc_devkit)
+    (j_dbs, j_recs), (t_dbs, t_recs) = j_train_net.load_pairdbs(jc), t_train_net.load_pairdbs(tc)
+    j_voc, t_voc = j_pre.VOCBackgrounds(str(tmp_path)), t_pre.VOCBackgrounds(str(tmp_path))
+    assert t_voc.bg_list == j_voc.bg_list == ["prog", "cmyk"]
+    cache = t_pre.DecodeCache()
+    for i, rec in enumerate(t_recs):
+        pts = t_dbs[0].points(rec["gt_class"])
+        a = j_pre.make_train_sample(rec, jc, pts, random.Random(i), np.random.RandomState(i), j_voc)
+        b = t_pre.make_train_sample(rec, tc, pts, random.Random(i), np.random.RandomState(i), t_voc, cache)
+        assert set(a) == set(b)
+        for k in a:
+            x, y = np.asarray(a[k]), np.asarray(b[k])
+            assert x.dtype == y.dtype and x.shape == y.shape, k
+            np.testing.assert_array_equal(x, y, err_msg=k)
+    for name in t_voc.bg_list:
+        path = os.path.join(t_voc.voc_root, f"JPEGImages/{name}.jpg")
+        np.testing.assert_array_equal(cache.data["voc", path], cv2.imread(path)[:, :, ::-1].astype(np.float32))
+
+
 def test_voc_crop_and_resize_equals_cv2():
     """replace_background's resize against the JAX package's cv2.resize on
     the crops of both aspect branches, VOC's 500x375 and 500x333 among them:
@@ -271,6 +313,36 @@ def test_images_to_video_jpeg_frames_equal_jax(tmp_path, monkeypatch):
              _write(tmp_path / "1.jpeg", _image("noise", 48, 64, 2), cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
                     SAMPLING["444"]),
              _write(tmp_path / "2.jpg", _image("gradient", 48, 64, 3)[:, :, 0])]
+    j_gen_video.images_to_video(paths, str(tmp_path / "j.mp4"), fps=4.0)
+    stats = t_gen_video.images_to_video(paths, str(tmp_path / "t.avi"), fps=4.0)
+    (rec,) = _Recorder.videos
+    cap = cv2.VideoCapture(str(tmp_path / "t.avi"))
+    got = []
+    while True:
+        ok, fr = cap.read()
+        if not ok:
+            break
+        got.append(fr[:, :, ::-1])
+    cap.release()
+    assert stats["frames"] == len(got) == len(rec.frames) == 3
+    for a, b in zip(got, rec.frames):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_images_to_video_progressive_frames_equal_jax(tmp_path, monkeypatch):
+    """Progressive JPEG frames (4:2:0 with restarts, 4:4:4, gray, and one
+    under a .png name) stacked as the JAX package stacks them through
+    cv2.imread: the port's AVI frames equal the frames JAX hands
+    cv2.VideoWriter."""
+    _Recorder.videos = []
+    monkeypatch.setattr(cv2, "VideoWriter", _Recorder)
+    prog = (cv2.IMWRITE_JPEG_PROGRESSIVE, 1)
+    paths = [_write(tmp_path / "0.jpg", _image("gradient", 48, 64, 4), *prog, cv2.IMWRITE_JPEG_RST_INTERVAL, 3),
+             _write(tmp_path / "1.jpg", _image("noise", 48, 64, 5), *prog, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                    SAMPLING["444"]),
+             _write(tmp_path / "2.jpg", _image("gradient", 48, 64, 6)[:, :, 0], *prog)]
+    os.rename(paths[1], tmp_path / "1.png")
+    paths[1] = str(tmp_path / "1.png")
     j_gen_video.images_to_video(paths, str(tmp_path / "j.mp4"), fps=4.0)
     stats = t_gen_video.images_to_video(paths, str(tmp_path / "t.avi"), fps=4.0)
     (rec,) = _Recorder.videos

@@ -203,7 +203,8 @@ def test_images_to_video_equals_jax(tmp_path, recorder, same_size):
     """images_to_video on cv2-written PNGs: the frames the JAX package
     hands cv2.VideoWriter and the port's AVI frames, exactly equal when
     every image has the first one's size, within one grey level when some
-    are resized."""
+    are resized.  A BMP file (cv2 reads it, the port does not) raises,
+    naming its format."""
     rng = np.random.RandomState(2)
     paths = []
     for i, hw in enumerate([(48, 64), (48, 64) if same_size else (61, 50), (48, 64) if same_size else (30, 90)]):
@@ -218,8 +219,10 @@ def test_images_to_video_equals_jax(tmp_path, recorder, same_size):
     for a, b in zip(got, rec.frames):
         diff = np.abs(a.astype(int) - b.astype(int)).max()
         assert diff == 0 if same_size else diff <= 1, diff
-    with pytest.raises(ValueError, match="PNG and JPEG"):
-        t_gen_video.images_to_video([str(tmp_path / "x.bmp")], str(tmp_path / "x.avi"))
+    bmp = str(tmp_path / "x.bmp")
+    cv2.imwrite(bmp, _rgb(rng, (8, 8)))  # read by content now: the file must exist to be refused as a BMP
+    with pytest.raises(ValueError, match="a BMP file; imread reads PNG and JPEG"):
+        t_gen_video.images_to_video([bmp], str(tmp_path / "x.avi"))
 
 
 @pytest.mark.parametrize("mode", ["iter_zoom", "iter", "single"])
