@@ -27,6 +27,7 @@ import torch
 from deepim_tpu_torch.config import Config
 from deepim_tpu_torch.data.preprocess import DecodeCache, VOCBackgrounds, make_test_sample, make_train_sample
 from deepim_tpu_torch.engine.train import TrainBatch
+from deepim_tpu_torch.utils import tracing
 
 
 def _stack(samples: list[dict[str, np.ndarray]], key: str) -> np.ndarray:
@@ -151,7 +152,10 @@ class TrainLoader:
                     for bi in range(self.epoch_size):
                         slots = [bi * self.batch_size + lo + j for j in range(self.local_batch_size)]
                         recs = [self.pairdb[order[s]] for s in slots]
-                        if not put(self._assemble(pool, recs, epoch, slots)):
+                        with tracing.span("loader.batch"):
+                            tracing.count("loader.batches")
+                            batch = self._assemble(pool, recs, epoch, slots)
+                        if not put(batch):
                             return
             except Exception as exc:  # handed to the consumer, which raises it
                 put(exc)
@@ -162,7 +166,8 @@ class TrainLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with tracing.span("loader.wait"):
+                    item = q.get()
                 if item is _END:
                     break
                 if isinstance(item, Exception):
@@ -205,15 +210,17 @@ class TestLoader:
                 idxs = [min(start + j, n - 1) for j in range(self.batch_size)]
                 recs = [self.pairdb[i] for i in idxs]
                 valid = min(self.batch_size, n - start)
-                samples = list(pool.map(self._make_sample, recs, idxs))
-                batch = {
-                    "image_observed": _stack(samples, "image_observed"),
-                    "mask_observed": _stack(samples, "mask_observed"),
-                    "pose_rendered": _stack(samples, "pose_rendered"),
-                    "pose_observed": _stack(samples, "pose_observed"),
-                    "class_index": _stack(samples, "class_index"),
-                    "k": self.k,
-                }
-                if "depth_observed" in samples[0]:
-                    batch["depth_observed"] = _stack(samples, "depth_observed")
+                with tracing.span("loader.batch"):
+                    tracing.count("loader.batches")
+                    samples = list(pool.map(self._make_sample, recs, idxs))
+                    batch = {
+                        "image_observed": _stack(samples, "image_observed"),
+                        "mask_observed": _stack(samples, "mask_observed"),
+                        "pose_rendered": _stack(samples, "pose_rendered"),
+                        "pose_observed": _stack(samples, "pose_observed"),
+                        "class_index": _stack(samples, "class_index"),
+                        "k": self.k,
+                    }
+                    if "depth_observed" in samples[0]:
+                        batch["depth_observed"] = _stack(samples, "depth_observed")
                 yield batch, valid

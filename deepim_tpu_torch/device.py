@@ -26,6 +26,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on a CUDA device (nothing on the CPU): a
+    stage timed on the host's clock ends here."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def set_explicit_precision() -> None:
     """Make the card compute in the dtype each tensor has, as the JAX
     package does: float32 convolutions and matmuls in float32, not TF32

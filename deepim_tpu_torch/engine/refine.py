@@ -53,6 +53,7 @@ from deepim_tpu_torch.render.rasterizer import (
     render_mask,
     uses_csr,
 )
+from deepim_tpu_torch.utils import tracing
 
 log = logging.getLogger(__name__)
 
@@ -320,29 +321,30 @@ def render_at_pose(meshes: MeshBuffers, pose, k, ecfg: EngineConfig, light: Ligh
     ecfg.texture_sampling, uv and textures and no light, the texture is
     sampled per pixel (rasterize_textured)."""
     dev = resolve_device(device)
-    meshes = meshes.to(dev)
-    pose, k = pose.to(dev), k.to(dev)
-    colors, corner_colors = meshes.colors, meshes.corner_colors
-    with torch.no_grad():
-        if light is not None and meshes.normals is not None:
-            light = light.to(dev)
-            colors = lit_vertex_colors(meshes.vertices, meshes.normals, meshes.colors, pose,
-                                       light.position, light.intensity, light.brightness_ratio)
-            corner_colors = gather_corners(colors, meshes.faces)
-        if (ecfg.texture_sampling and meshes.uv is not None and meshes.textures is not None
-                and light is None):
-            rgb, depth, dropped = rasterize_textured(
-                meshes.vertices, meshes.uv, meshes.textures, meshes.faces, meshes.face_valid, pose, k,
-                ecfg.raster, with_stats=True, device=dev,
-            )
-        else:
-            rgb, depth, dropped = rasterize(
-                meshes.vertices, colors, meshes.faces, meshes.face_valid, pose, k, ecfg.raster,
-                corners=meshes.corners, corner_colors=corner_colors, with_stats=True, device=dev,
-            )
-    rgb = rgb.permute(0, 3, 1, 2)
-    depth = depth[:, None]
-    mask = render_mask(depth, ecfg.mask_thresh)
+    with tracing.span("render", dev):
+        meshes = meshes.to(dev)
+        pose, k = pose.to(dev), k.to(dev)
+        colors, corner_colors = meshes.colors, meshes.corner_colors
+        with torch.no_grad():
+            if light is not None and meshes.normals is not None:
+                light = light.to(dev)
+                colors = lit_vertex_colors(meshes.vertices, meshes.normals, meshes.colors, pose,
+                                           light.position, light.intensity, light.brightness_ratio)
+                corner_colors = gather_corners(colors, meshes.faces)
+            if (ecfg.texture_sampling and meshes.uv is not None and meshes.textures is not None
+                    and light is None):
+                rgb, depth, dropped = rasterize_textured(
+                    meshes.vertices, meshes.uv, meshes.textures, meshes.faces, meshes.face_valid, pose, k,
+                    ecfg.raster, with_stats=True, device=dev,
+                )
+            else:
+                rgb, depth, dropped = rasterize(
+                    meshes.vertices, colors, meshes.faces, meshes.face_valid, pose, k, ecfg.raster,
+                    corners=meshes.corners, corner_colors=corner_colors, with_stats=True, device=dev,
+                )
+        rgb = rgb.permute(0, 3, 1, 2)
+        depth = depth[:, None]
+        mask = render_mask(depth, ecfg.mask_thresh)
     if with_stats:
         return rgb, depth, mask, dropped
     return rgb, depth, mask
@@ -383,35 +385,38 @@ def refine_step(model, obs: Observation, meshes: MeshBuffers, pose, ecfg: Engine
         mask_obs = obs.mask_observed
     mask_gt_obs = obs.mask_gt_observed if obs.mask_gt_observed is not None else mask_obs
 
-    zdt = _ZOOM_DTYPES[ecfg.zoom_dtype]
-    img_obs_norm = obs.image_observed - pm.reshape(1, 3, 1, 1)
-    img_rend_norm = image_rendered - pm.reshape(1, 3, 1, 1)
-    if ecfg.input_mask:
-        zf = zoom_factor_from_masks(mask_obs, mask_gt_obs, mask_rendered, pose, k)
-    else:
-        zf = zoom_factor_from_images(img_obs_norm, img_rend_norm, pose, k, pm)
-    z_img_obs, z_img_rend = zoom_images(img_obs_norm.to(zdt), img_rend_norm.to(zdt), zf, pm)
+    with tracing.span("zoom", dev):
+        zdt = _ZOOM_DTYPES[ecfg.zoom_dtype]
+        img_obs_norm = obs.image_observed - pm.reshape(1, 3, 1, 1)
+        img_rend_norm = image_rendered - pm.reshape(1, 3, 1, 1)
+        if ecfg.input_mask:
+            zf = zoom_factor_from_masks(mask_obs, mask_gt_obs, mask_rendered, pose, k)
+        else:
+            zf = zoom_factor_from_images(img_obs_norm, img_rend_norm, pose, k, pm)
+        z_img_obs, z_img_rend = zoom_images(img_obs_norm.to(zdt), img_rend_norm.to(zdt), zf, pm)
 
-    inputs = {}
-    z_mask_gt = None
-    if ecfg.input_mask:
-        z_mask_obs, z_mask_gt, z_mask_rend = zoom_masks(mask_obs, mask_gt_obs, mask_rendered, zf)
-        inputs.update(mask_observed=z_mask_obs, mask_rendered=z_mask_rend)
-    if ecfg.input_depth:
-        z_d_obs, z_d_rend = zoom_depths(obs.depth_observed, depth_rendered, zf)
-        scale = 255.0 / ecfg.depth_factor_for_input
-        inputs.update(depth_observed=z_d_obs * scale, depth_rendered=z_d_rend * scale)
-    x = assemble_input(z_img_obs, z_img_rend, **inputs)
-    if getattr(model, "num_regressors", 1) > 1:
-        out = model(x, obs.class_index)
-    else:
-        out = model(x)
-    trans = zoom_trans(out["trans"], zf.as_array(), True, False)
-    pose_new = RT_transform(pose, out["rot"], trans, t_means, t_stds, ecfg.rot_coord)
-    mask_pred_full = None
-    if "mask_logit" in out:
-        mask_prob = torch.sigmoid(out["mask_logit"])
-        mask_pred_full = torch.round(zoom_mask(mask_prob, zf, binarize_input=True, inverse=True))
+        inputs = {}
+        z_mask_gt = None
+        if ecfg.input_mask:
+            z_mask_obs, z_mask_gt, z_mask_rend = zoom_masks(mask_obs, mask_gt_obs, mask_rendered, zf)
+            inputs.update(mask_observed=z_mask_obs, mask_rendered=z_mask_rend)
+        if ecfg.input_depth:
+            z_d_obs, z_d_rend = zoom_depths(obs.depth_observed, depth_rendered, zf)
+            scale = 255.0 / ecfg.depth_factor_for_input
+            inputs.update(depth_observed=z_d_obs * scale, depth_rendered=z_d_rend * scale)
+        x = assemble_input(z_img_obs, z_img_rend, **inputs)
+    with tracing.span("net.forward", dev):
+        if getattr(model, "num_regressors", 1) > 1:
+            out = model(x, obs.class_index)
+        else:
+            out = model(x)
+    with tracing.span("pose.update", dev):
+        trans = zoom_trans(out["trans"], zf.as_array(), True, False)
+        pose_new = RT_transform(pose, out["rot"], trans, t_means, t_stds, ecfg.rot_coord)
+        mask_pred_full = None
+        if "mask_logit" in out:
+            mask_prob = torch.sigmoid(out["mask_logit"])
+            mask_pred_full = torch.round(zoom_mask(mask_prob, zf, binarize_input=True, inverse=True))
     aux = {
         "net": out,
         "mask_pred_full": mask_pred_full,
@@ -439,18 +444,20 @@ def refine(model, obs: Observation, meshes: MeshBuffers, pose0, ecfg: EngineConf
     mask becomes the next one's observed mask."""
     n = num_iters if num_iters is not None else ecfg.num_iters
     dev = resolve_device(device)
-    obs, meshes, pose = obs.to(dev), meshes.to(dev), pose0.to(dev)
-    poses, drops = [], []
-    mask_state = None
-    with torch.no_grad():
-        for it in range(n):
-            pose, aux = refine_step(model, obs, meshes, pose, ecfg, iter_index=it,
-                                    mask_observed_state=mask_state, device=dev)
-            if ecfg.update_mask == "box_observed" and aux["mask_pred_full"] is not None:
-                mask_state = aux["mask_pred_full"]
-            poses.append(pose)
-            drops.append(aux["raster_dropped"])
-    stacked = torch.stack(poses)
-    if with_stats:
-        return pose, stacked, {"raster_dropped": torch.stack(drops).sum()}
-    return pose, stacked
+    with tracing.span("refine.call", dev):
+        obs, meshes, pose = obs.to(dev), meshes.to(dev), pose0.to(dev)
+        poses, drops = [], []
+        mask_state = None
+        with torch.no_grad():
+            for it in range(n):
+                with tracing.span("refine.iter", dev):
+                    pose, aux = refine_step(model, obs, meshes, pose, ecfg, iter_index=it,
+                                            mask_observed_state=mask_state, device=dev)
+                    if ecfg.update_mask == "box_observed" and aux["mask_pred_full"] is not None:
+                        mask_state = aux["mask_pred_full"]
+                    poses.append(pose)
+                    drops.append(aux["raster_dropped"])
+        stacked = torch.stack(poses)
+        if with_stats:
+            return pose, stacked, {"raster_dropped": torch.stack(drops).sum()}
+        return pose, stacked

@@ -26,11 +26,12 @@ from deepim_tpu_torch.config import Config
 from deepim_tpu_torch.data.loader import TestLoader
 from deepim_tpu_torch.data.pairdb import load_pose_file
 from deepim_tpu_torch.data.preprocess import load_depth, load_gt_observed_mask, resize_to
-from deepim_tpu_torch.device import resolve_device
+from deepim_tpu_torch.device import resolve_device, synchronize
 from deepim_tpu_torch.engine.refine import EngineConfig, MeshBuffers, Observation, refine, refine_step
 from deepim_tpu_torch.eval.evaluator import PoseEvaluator, _rot_trans_errors
 from deepim_tpu_torch.ops.flow import flow_from_depth
 from deepim_tpu_torch.ops.zoom import zoom_flow
+from deepim_tpu_torch.utils import tracing
 from deepim_tpu_torch.utils.logger import logger
 
 
@@ -194,7 +195,10 @@ def pred_eval(cfg: Config, model, class_dbs: list, bank_arrays, output_dir: str,
     'run': {'pairs', 'data_s', 'net_s', 'eval_s', 'raster_dropped'}: the
     pairs refined, the loader's, the refinement's and the evaluation's
     (tables and curves) wall seconds, and the CSR face-tile pairs the
-    raster budget dropped (0 for exact renders)."""
+    raster budget dropped (0 for exact renders).  Each batch's data stage
+    is the wait for the loader's next batch (the `loader.wait` span), its
+    net stage the staging on the device, the refinement and the poses'
+    copy to the host up to a synchronize (the `refine.call` span)."""
     dev = resolve_device(device)
     ecfg = EngineConfig.from_config(cfg, train=False, bank_arrays=bank_arrays, device=dev)
     num_iters = cfg.TEST.test_iter
@@ -212,29 +216,37 @@ def pred_eval(cfg: Config, model, class_dbs: list, bank_arrays, output_dir: str,
         bank = bank_on_device(bank_arrays, dev)
         t_data = t_net = 0.0
         n_pairs = n_dropped = 0
+        synchronize(dev)
         for db, pairdb in class_dbs:
             cls_idx = all_classes.index(db.cur_class)
-            t0 = time.perf_counter()
-            for batch, valid in TestLoader(pairdb, cfg, batch_size).batches():
-                t_data += time.perf_counter() - t0
+            batches = TestLoader(pairdb, cfg, batch_size).batches()
+            while True:
                 t0 = time.perf_counter()
-                meshes, obs, safe_pose0, sentinel = _device_batch(batch, bank, dev)
-                _, poses, stats = refine(model, obs, meshes, safe_pose0, ecfg, num_iters,
-                                         with_stats=True, device=dev)
-                poses = poses.cpu().numpy()  # (iters, B, 3, 4)
-                nd = int(stats["raster_dropped"])
+                with tracing.span("loader.wait"):
+                    item = next(batches, None)
+                t_data += time.perf_counter() - t0
+                if item is None:
+                    break
+                batch, valid = item
+                t0 = time.perf_counter()
+                with tracing.span("refine.call", dev):
+                    meshes, obs, safe_pose0, sentinel = _device_batch(batch, bank, dev)
+                    _, poses, stats = refine(model, obs, meshes, safe_pose0, ecfg, num_iters,
+                                             with_stats=True, device=dev)
+                    poses = poses.cpu().numpy()  # (iters, B, 3, 4)
+                    nd = int(stats["raster_dropped"])
+                    synchronize(dev)
+                t_net += time.perf_counter() - t0
                 n_dropped += nd
                 if nd:
                     logger.warning("rasterizer dropped %d face-tile pairs for class %s - raise "
                                    "RasterConfig.bin_pairs", nd, db.cur_class)
-                t_net += time.perf_counter() - t0
                 pose0 = batch["pose_rendered"]
                 for it in range(num_iters):
                     for j in range(valid):
                         all_poses_est[cls_idx][it].append(pose0[j] if sentinel[j] else poses[it, j])
                         all_poses_gt[cls_idx][it].append(batch["pose_observed"][j])
                 n_pairs += valid
-                t0 = time.perf_counter()
         logger.info("pred_eval timing: data %.1fs net %.1fs", t_data, t_net)
         run = {"pairs": n_pairs, "data_s": t_data, "net_s": t_net, "raster_dropped": n_dropped}
         os.makedirs(output_dir, exist_ok=True)

@@ -30,6 +30,7 @@ from deepim_tpu_torch.geometry.se3 import calc_RT_delta
 from deepim_tpu_torch.ops.flow import flow_from_depth, gather_at_flow_target
 from deepim_tpu_torch.ops.pointmatch import transform3d
 from deepim_tpu_torch.ops.zoom import zoom_flow, zoom_trans
+from deepim_tpu_torch.utils import tracing
 
 # optax.apply_if_finite(max_consecutive_errors=100): the 101st consecutive
 # non-finite update is applied.
@@ -93,26 +94,27 @@ class Optimizer:
         """Apply one update from the parameters' .grad; returns whether it
         was applied.  A parameter without a gradient counts as a zero
         gradient (optax still decays it)."""
-        grads = []
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        if self.skip_nonfinite:
-            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
-            self.notfinite_count = 0 if finite else self.notfinite_count + 1
-            if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
-                return False
-        if self.grad_clip > 0:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            keep = norm < self.grad_clip
-            for g in grads:
-                g.copy_(torch.where(keep, g, g / norm * self.grad_clip))
-        for group in self.inner.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.inner.step()
-        self.count += 1
-        return True
+        with tracing.span("optim.step", self.params[0].device):
+            grads = []
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+            if self.skip_nonfinite:
+                finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+                self.notfinite_count = 0 if finite else self.notfinite_count + 1
+                if not finite and self.notfinite_count <= MAX_CONSECUTIVE_ERRORS:
+                    return False
+            if self.grad_clip > 0:
+                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                keep = norm < self.grad_clip
+                for g in grads:
+                    g.copy_(torch.where(keep, g, g / norm * self.grad_clip))
+            for group in self.inner.param_groups:
+                group["lr"] = self.schedule(self.count)
+            self.inner.step()
+            self.count += 1
+            return True
 
 
 def make_optimizer(params, tcfg: TrainConfig, schedule) -> Optimizer:
@@ -157,57 +159,58 @@ def compute_losses(model, batch: TrainBatch, meshes: MeshBuffers, pose_src, ecfg
     dev = resolve_device(device)
     pose_new, aux = refine_step(model, Observation.from_batch(batch), meshes, pose_src, ecfg,
                                 device=dev)
-    zf = aux["zoom_factor"]
-    t_means = torch.tensor(ecfg.trans_means, dtype=torch.float32, device=dev)
-    t_stds = torch.tensor(ecfg.trans_stds, dtype=torch.float32, device=dev)
-    losses = {}
-    total = torch.zeros((), dtype=torch.float32, device=dev)
+    with tracing.span("loss", dev):
+        zf = aux["zoom_factor"]
+        t_means = torch.tensor(ecfg.trans_means, dtype=torch.float32, device=dev)
+        t_stds = torch.tensor(ecfg.trans_stds, dtype=torch.float32, device=dev)
+        losses = {}
+        total = torch.zeros((), dtype=torch.float32, device=dev)
 
-    if ticfg.SE3_PM_LOSS:
-        r_obs, t_obs = batch.pose_observed[:, :, :3], batch.pose_observed[:, :, 3]
-        points_obs = torch.einsum("bij,bnj->bni", r_obs, batch.points_model) + t_obs[:, None, :]
-        points_est = transform3d(batch.points_model, aux["rot"], aux["trans"], pose_src,
-                                 t_means, t_stds, ecfg.rot_coord)
-        pm = point_matching_loss(points_est, points_obs, batch.points_weights, ticfg,
-                                 ecfg.normalize_3d_point)
-        losses["pm_loss"] = pm
-        total = total + pm
+        if ticfg.SE3_PM_LOSS:
+            r_obs, t_obs = batch.pose_observed[:, :, :3], batch.pose_observed[:, :, 3]
+            points_obs = torch.einsum("bij,bnj->bni", r_obs, batch.points_model) + t_obs[:, None, :]
+            points_est = transform3d(batch.points_model, aux["rot"], aux["trans"], pose_src,
+                                     t_means, t_stds, ecfg.rot_coord)
+            pm = point_matching_loss(points_est, points_obs, batch.points_weights, ticfg,
+                                     ecfg.normalize_3d_point)
+            losses["pm_loss"] = pm
+            total = total + pm
 
-    if ticfg.SE3_DIST_LOSS:
-        r_delta, t_delta = calc_RT_delta(pose_src, batch.pose_observed, t_means, t_stds,
-                                         ecfg.rot_coord)
-        zoom_trans_gt = zoom_trans(t_delta, zf.as_array(), False, False)
-        rot_l, trans_l = se3_dist_loss(aux["rot"], aux["zoom_trans"], mat2quat(r_delta),
-                                       zoom_trans_gt.detach(), ticfg)
-        losses["rot_loss"] = rot_l
-        losses["trans_loss"] = trans_l
-        total = total + rot_l + trans_l
+        if ticfg.SE3_DIST_LOSS:
+            r_delta, t_delta = calc_RT_delta(pose_src, batch.pose_observed, t_means, t_stds,
+                                             ecfg.rot_coord)
+            zoom_trans_gt = zoom_trans(t_delta, zf.as_array(), False, False)
+            rot_l, trans_l = se3_dist_loss(aux["rot"], aux["zoom_trans"], mat2quat(r_delta),
+                                           zoom_trans_gt.detach(), ticfg)
+            losses["rot_loss"] = rot_l
+            losses["trans_loss"] = trans_l
+            total = total + rot_l + trans_l
 
-    if ecfg.pred_flow and ticfg.LW_FLOW > 0:
-        depth_rend = aux["depth_rendered"][:, 0]
-        gt_flow, gt_valid = flow_from_depth(
-            depth_rend, batch.depth_gt_observed, pose_src, batch.pose_observed, batch.k,
-            standard_rep=ecfg.standard_flow_rep,
-        )
-        if flow_weight_type == "viz_visible":
-            vis_tgt = gather_at_flow_target(batch.mask_gt_observed[:, 0], gt_flow,
-                                            standard_rep=ecfg.standard_flow_rep)
-            weights = flow_weights_from_valid(gt_valid * vis_tgt, "viz", depth_rend)
-        else:
-            weights = flow_weights_from_valid(gt_valid, flow_weight_type, depth_rend)
-        z_flow, z_weights = zoom_flow(gt_flow, zf, weights)
-        fl = flow_loss(aux["net"]["flow"], z_flow, z_weights, ecfg.normalize_flow, ticfg.LW_FLOW,
-                       float(ecfg.height * ecfg.width))
-        losses["flow_loss"] = fl
-        total = total + fl
+        if ecfg.pred_flow and ticfg.LW_FLOW > 0:
+            depth_rend = aux["depth_rendered"][:, 0]
+            gt_flow, gt_valid = flow_from_depth(
+                depth_rend, batch.depth_gt_observed, pose_src, batch.pose_observed, batch.k,
+                standard_rep=ecfg.standard_flow_rep,
+            )
+            if flow_weight_type == "viz_visible":
+                vis_tgt = gather_at_flow_target(batch.mask_gt_observed[:, 0], gt_flow,
+                                                standard_rep=ecfg.standard_flow_rep)
+                weights = flow_weights_from_valid(gt_valid * vis_tgt, "viz", depth_rend)
+            else:
+                weights = flow_weights_from_valid(gt_valid, flow_weight_type, depth_rend)
+            z_flow, z_weights = zoom_flow(gt_flow, zf, weights)
+            fl = flow_loss(aux["net"]["flow"], z_flow, z_weights, ecfg.normalize_flow, ticfg.LW_FLOW,
+                           float(ecfg.height * ecfg.width))
+            losses["flow_loss"] = fl
+            total = total + fl
 
-    if ecfg.pred_mask and ticfg.LW_MASK > 0:
-        ml = mask_loss(aux["net"]["mask_logit"], aux["zoom_mask_gt_observed"], ticfg.LW_MASK)
-        losses["mask_loss"] = ml
-        total = total + ml
+        if ecfg.pred_mask and ticfg.LW_MASK > 0:
+            ml = mask_loss(aux["net"]["mask_logit"], aux["zoom_mask_gt_observed"], ticfg.LW_MASK)
+            losses["mask_loss"] = ml
+            total = total + ml
 
-    losses["total"] = total
-    losses["raster_dropped"] = aux["raster_dropped"]
+        losses["total"] = total
+        losses["raster_dropped"] = aux["raster_dropped"]
     return total, (pose_new, losses)
 
 
@@ -224,24 +227,27 @@ def make_train_step(ecfg: EngineConfig, ticfg: TrainIterConfig, flow_weight_type
     znear, zfar = ecfg.raster.znear, ecfg.raster.zfar
 
     def train_step(state: TrainState, batch: TrainBatch, bank_arrays):
-        batch = batch.to(dev)
-        meshes = MeshBuffers.gather(bank_arrays, batch.class_index, device=dev)
-        pose_src = batch.pose_rendered
-        history = []
-        for _ in range(n_inner):
-            state.optimizer.zero_grad()
-            total, (pose_new, losses) = compute_losses(
-                state.model, batch, meshes, pose_src, ecfg, ticfg, flow_weight_type, device=dev)
-            if total.requires_grad:
-                total.backward()
-            state.optimizer.step()
-            state.step += 1
-            pose_next = pose_new.detach()
-            z = pose_next[:, 2, 3]
-            ok = torch.isfinite(pose_next).all(dim=2).all(dim=1) & (z > znear) & (z < zfar)
-            pose_src = torch.where(ok[:, None, None], pose_next, pose_src)
-            history.append({k: v.detach() for k, v in losses.items()})
-        metrics = {k: torch.stack([h[k] for h in history]) for k in history[0]}
-        return state, metrics, pose_src
+        with tracing.span("train.step", dev):
+            batch = batch.to(dev)
+            meshes = MeshBuffers.gather(bank_arrays, batch.class_index, device=dev)
+            pose_src = batch.pose_rendered
+            history = []
+            for _ in range(n_inner):
+                with tracing.span("train.inner", dev):
+                    state.optimizer.zero_grad()
+                    total, (pose_new, losses) = compute_losses(
+                        state.model, batch, meshes, pose_src, ecfg, ticfg, flow_weight_type, device=dev)
+                    if total.requires_grad:
+                        with tracing.span("net.backward", dev):
+                            total.backward()
+                    state.optimizer.step()
+                    state.step += 1
+                    pose_next = pose_new.detach()
+                    z = pose_next[:, 2, 3]
+                    ok = torch.isfinite(pose_next).all(dim=2).all(dim=1) & (z > znear) & (z < zfar)
+                    pose_src = torch.where(ok[:, None, None], pose_next, pose_src)
+                    history.append({k: v.detach() for k, v in losses.items()})
+            metrics = {k: torch.stack([h[k] for h in history]) for k in history[0]}
+            return state, metrics, pose_src
 
     return train_step

@@ -46,6 +46,7 @@ from deepim_tpu_torch.render.raster_kernels import (
     csr_raster,
     tile_raster,
 )
+from deepim_tpu_torch.utils import tracing
 
 
 @dataclass(frozen=True)
@@ -341,9 +342,11 @@ def rasterize(vertices, colors, faces, face_valid, poses, k, cfg: RasterConfig =
     outs = []
     for sub in _sub_batches(vertices, colors, faces, face_valid, poses, k, cfg,
                             corners, corner_colors, dev):
-        plan = _plan(*sub, cfg)
-        out = KERNELS[plan.kernel](*plan.args)
-        outs.append(_untile(plan, out, cfg))
+        with tracing.span("render.bin", dev):
+            plan = _plan(*sub, cfg)
+        with tracing.span("render.raster", dev):
+            out = KERNELS[plan.kernel](*plan.args)
+            outs.append(_untile(plan, out, cfg))
     rgb = torch.cat([o[0] for o in outs]) if len(outs) > 1 else outs[0][0]
     depth = torch.cat([o[1] for o in outs]) if len(outs) > 1 else outs[0][1]
     if not with_stats:

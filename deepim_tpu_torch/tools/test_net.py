@@ -7,9 +7,11 @@ evaluation instead (test_modelnet: dataset.model_file and pose_file,
 renders lit by a point light).
 
     python -m deepim_tpu_torch.tools.test_net --cfg <experiment.yaml> [--device cuda|cpu]
-        [--batch-size 16]
+        [--batch-size 16] [--trace-out trace.json]
 
-Without CUDA it raises unless given --device cpu.
+Without CUDA it raises unless given --device cpu.  --trace-out turns the
+port's spans on (utils/tracing.py) and writes the last calls as a
+Chrome-trace JSON at the end.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 from deepim_tpu_torch.config import Config, load_config
 from deepim_tpu_torch.data.modelnet import ModelNetDB
 from deepim_tpu_torch.data.pairdb import load_gt_pairdb
-from deepim_tpu_torch.device import resolve_device, set_explicit_precision
+from deepim_tpu_torch.device import resolve_device, set_explicit_precision, synchronize
 from deepim_tpu_torch.engine.checkpoint import checkpoint_path, load_checkpoint
 from deepim_tpu_torch.engine.refine import (
     EngineConfig,
@@ -39,6 +41,7 @@ from deepim_tpu_torch.models.flownet import FlowNetDeepIM
 from deepim_tpu_torch.ops.masks import box_fill
 from deepim_tpu_torch.toolkit.gen_video import gen_refine_video
 from deepim_tpu_torch.tools.train_net import build_mesh_bank, build_model, input_channels, rot_dim
+from deepim_tpu_torch.utils import tracing
 from deepim_tpu_torch.utils.logger import create_logger, logger
 
 
@@ -75,7 +78,9 @@ def test_modelnet(cfg: Config, model: FlowNetDeepIM, batch_size: int = 16, devic
     iteration), each {'rot_err' (N,) degrees, 'trans_err' (N,) metres},
     and 'run': the pairs, 'data_s' (meshes, bank, records), 'net_s' (the
     renders and refinement, poses on the host), 'eval_s' and
-    'raster_dropped' (CSR face-tile pairs dropped by any render)."""
+    'raster_dropped' (CSR face-tile pairs dropped by any render).  Each
+    stage ends at a synchronize; each batch's renders and refinement are
+    one `refine.call` span."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
     db = ModelNetDB(cfg.dataset.model_file, cfg.dataset.pose_file)
@@ -85,6 +90,7 @@ def test_modelnet(cfg: Config, model: FlowNetDeepIM, batch_size: int = 16, devic
     ecfg = EngineConfig.from_config(cfg, train=False, bank_arrays=bank_arrays, device=dev)
     k = torch.from_numpy(cfg.dataset.intrinsic_matrix()).to(dev)
     bank_d = bank_on_device(bank_arrays, dev)
+    synchronize(dev)
     data_s = time.perf_counter() - t0
 
     def stacked(recs, key):
@@ -94,19 +100,21 @@ def test_modelnet(cfg: Config, model: FlowNetDeepIM, batch_size: int = 16, devic
     n = len(records)
     all_poses, drops = [], []
     for start in range(0, n, batch_size):
-        recs = [records[min(start + j, n - 1)] for j in range(batch_size)]
-        meshes = MeshBuffers.gather(bank_d, np.asarray([r["model_index"] for r in recs]), device=dev)
-        light = LightParams(stacked(recs, "light_position"), stacked(recs, "light_intensity"),
-                            stacked(recs, "brightness_ratio"))
-        img, _, mask, dropped = render_at_pose(meshes, stacked(recs, "pose_observed"), k, ecfg, light,
-                                               with_stats=True, device=dev)
-        obs = Observation(img, box_fill(mask), None, None, k, light=light)
-        _, poses, stats = refine(model, obs, meshes, stacked(recs, "pose_rendered"), ecfg, with_stats=True,
-                                 device=dev)
-        drops += [dropped, stats["raster_dropped"]]
-        all_poses.append(poses[:, : min(batch_size, n - start)])
+        with tracing.span("refine.call", dev):
+            recs = [records[min(start + j, n - 1)] for j in range(batch_size)]
+            meshes = MeshBuffers.gather(bank_d, np.asarray([r["model_index"] for r in recs]), device=dev)
+            light = LightParams(stacked(recs, "light_position"), stacked(recs, "light_intensity"),
+                                stacked(recs, "brightness_ratio"))
+            img, _, mask, dropped = render_at_pose(meshes, stacked(recs, "pose_observed"), k, ecfg, light,
+                                                   with_stats=True, device=dev)
+            obs = Observation(img, box_fill(mask), None, None, k, light=light)
+            _, poses, stats = refine(model, obs, meshes, stacked(recs, "pose_rendered"), ecfg,
+                                     with_stats=True, device=dev)
+            drops += [dropped, stats["raster_dropped"]]
+            all_poses.append(poses[:, : min(batch_size, n - start)])
     poses_iter = torch.cat(all_poses, dim=1).cpu().numpy()  # (iters, N, 3, 4)
     n_dropped = int(torch.stack(drops).sum())
+    synchronize(dev)
     net_s = time.perf_counter() - t0
     if n_dropped:
         logger.warning("rasterizer dropped %d face-tile pairs - raise RasterConfig.bin_pairs", n_dropped)
@@ -231,8 +239,16 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--cfg", required=True, help="experiment YAML file")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--batch-size", type=int, default=16)
+    ap.add_argument("--trace-out", help="write the spans of the last calls here (Chrome-trace JSON)")
     args = ap.parse_args(argv)
-    return test_deepim(load_config(args.cfg), batch_size=args.batch_size, device=args.device)
+    if args.trace_out:
+        tracing.enable()
+    try:
+        return test_deepim(load_config(args.cfg), batch_size=args.batch_size, device=args.device)
+    finally:
+        if args.trace_out:
+            tracing.disable()
+            tracing.write(args.trace_out)
 
 
 if __name__ == "__main__":

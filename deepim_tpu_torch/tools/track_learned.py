@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation as R
 
-from deepim_tpu_torch.device import resolve_device, set_explicit_precision
+from deepim_tpu_torch.device import resolve_device, set_explicit_precision, synchronize
 from deepim_tpu_torch.engine.checkpoint import load_checkpoint
 from deepim_tpu_torch.engine.refine import EngineConfig, MeshBuffers, tune_raster_for_bank
 from deepim_tpu_torch.engine.tracker import make_tracker
@@ -198,8 +198,7 @@ def main(argv: list[str] | None = None) -> dict:
     run["render_s"] = time.perf_counter() - t0
 
     track = make_tracker(model, ecfg, args.iters_per_frame, init_iters=args.init_iters, with_stats=True, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     _, poses, stats = track(torch.from_numpy(frames), meshes, torch.from_numpy(k), torch.from_numpy(pose0))
     poses_est = poses.cpu().numpy()

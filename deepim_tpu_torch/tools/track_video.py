@@ -24,7 +24,7 @@ import torch
 from deepim_tpu_torch.config import Config, load_config
 from deepim_tpu_torch.data.loader import TestLoader
 from deepim_tpu_torch.data.pairdb import PairDB, load_gt_pairdb
-from deepim_tpu_torch.device import resolve_device, set_explicit_precision
+from deepim_tpu_torch.device import resolve_device, set_explicit_precision, synchronize
 from deepim_tpu_torch.engine.checkpoint import load_checkpoint
 from deepim_tpu_torch.engine.refine import EngineConfig, MeshBuffers, render_at_pose
 from deepim_tpu_torch.engine.tracker import make_tracker
@@ -70,8 +70,7 @@ def track_pairdb_sequence(cfg: Config, model, db: PairDB, pairdb: list[dict], ba
     run["decode_s"] = time.perf_counter() - t0
 
     track = make_tracker(model, ecfg, iters_per_frame, with_stats=True, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     _, poses, stats = track(torch.from_numpy(run["images"])[:, None], meshes, k, torch.from_numpy(pose0[None]))
     poses = poses[:, 0].cpu().numpy()

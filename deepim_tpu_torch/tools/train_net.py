@@ -10,6 +10,9 @@ card each:
         -m deepim_tpu_torch.tools.train_net --cfg <experiment.yaml>
 
 Without CUDA it raises unless given --device cpu (gloo between ranks).
+--trace-out PATH turns the port's spans on (utils/tracing.py) and writes
+the last steps as a Chrome-trace JSON at the end (rank r of several ranks
+writes PATH with `.rank<r>` before its suffix).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 from deepim_tpu_torch.config import Config, load_config
 from deepim_tpu_torch.data.loader import TrainLoader
 from deepim_tpu_torch.data.pairdb import load_gt_pairdb, merge_pairdb
-from deepim_tpu_torch.device import resolve_device, set_explicit_precision
+from deepim_tpu_torch.device import resolve_device, set_explicit_precision, synchronize
 from deepim_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
 from deepim_tpu_torch.engine.lr_schedule import lr_steps_from_config, warmup_multifactor_schedule
 from deepim_tpu_torch.engine.refine import EngineConfig
@@ -41,6 +44,7 @@ from deepim_tpu_torch.parallel import (
 )
 from deepim_tpu_torch.render.mesh import MeshBank, load_textured_mesh
 from deepim_tpu_torch.tools.convert_mxnet_checkpoint import load_npz_state_dict
+from deepim_tpu_torch.utils import tracing
 from deepim_tpu_torch.utils.logger import create_logger, logger, run_directory
 from deepim_tpu_torch.utils.mxnet_io import load_mxnet_params
 from deepim_tpu_torch.utils.speedometer import Speedometer
@@ -248,8 +252,7 @@ def train_net(cfg: Config, output_dir: str | None = None, device="cuda",
             if lead and cfg.TRAIN.VISUALIZE and nbatch % 100 == 0:
                 _dump_batch_vis(batch, os.path.join(output_dir, "vis"), f"e{epoch}_b{nbatch}")
             tic = time.perf_counter()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        synchronize(dev)
         loop_s = time.perf_counter() - t_epoch
         if tb.enabled:
             tb.weight_norms(state.model, epoch + 1)
@@ -306,11 +309,21 @@ def main(argv: list[str] | None = None) -> TrainState:
     ap = argparse.ArgumentParser(description="Train DeepIM (PyTorch port)")
     ap.add_argument("--cfg", required=True, help="experiment YAML file")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--trace-out", help="write the spans of the last steps here (Chrome-trace JSON)")
     args = ap.parse_args(argv)
     owns_group = initialize_distributed(device=args.device)
+    if args.trace_out:
+        tracing.enable()
     try:
         return train_net(load_config(args.cfg), device=args.device)
     finally:
+        if args.trace_out:
+            tracing.disable()
+            path = args.trace_out
+            if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+                root, ext = os.path.splitext(path)
+                path = f"{root}.rank{torch.distributed.get_rank()}{ext}"
+            tracing.write(path)
         if owns_group:
             shutdown_distributed()
 
