@@ -399,10 +399,13 @@ from deepim_tpu_torch.render.lighting import lit_vertex_colors  # noqa: E402
 from deepim_tpu_torch.render.mesh import MeshBank, make_icosphere, make_mixed_detail_mesh, make_test_cube  # noqa: E402
 from deepim_tpu_torch.render.mesh import make_uv_sphere, smooth_texture, write_obj, write_textured_obj  # noqa: E402
 from deepim_tpu_torch.render.rasterizer import KERNELS, RasterConfig, kernel_inputs, rasterize  # noqa: E402
+from deepim_tpu_torch.render.rasterizer import _expand_k, _face_validity, bin_faces_csr  # noqa: E402
+from deepim_tpu_torch.render.rasterizer import expand_corners, project_vertices  # noqa: E402
 from deepim_tpu_torch.render.rasterizer import texture_gather  # noqa: E402
 from deepim_tpu_torch.render.stress import stress_tile_list, stress_work_list  # noqa: E402
 from deepim_tpu_torch.toolkit._common import DEFAULT_K as TK_K  # noqa: E402
-from deepim_tpu_torch.tools.synth_data import generate_dataset, sample_perturbed_pose  # noqa: E402
+from deepim_tpu_torch.tools.synth_data import generate_dataset, linemod_refine_poses, linemod_standin_bank  # noqa: E402
+from deepim_tpu_torch.tools.synth_data import sample_perturbed_pose  # noqa: E402
 from deepim_tpu_torch.tools import test_net as test_net_mod  # noqa: E402
 from deepim_tpu_torch.tools import train_net as train_net_mod  # noqa: E402
 from deepim_tpu_torch.tools.test_net import test_deepim  # noqa: E402
@@ -453,7 +456,14 @@ REPLACES = {
     "csr_raster": "deepim_tpu/render/pallas_raster.py:117 (_csr_chunk_kernel, slots8)",
     "csr_planes_raster": "deepim_tpu/render/pallas_raster.py:240 (_csr_planes_kernel, planes64)",
     "tile_raster": "deepim_tpu/render/pallas_raster.py:66 (_tile_kernel)",
+    "csr_bin": "none: the JAX package bins in XLA (deepim_tpu/render/rasterizer.py bin_faces_csr); on the card "
+               "it replaces the port's torch sort of one key per budget slot",
 }
+# The CSR binning's main-path shapes (name, LINEMOD stand-in bank, batch,
+# depth range): lm6d_all's and the ape's refine calls at batch 32, the
+# ape's training renders at 16.
+BIN_SHAPES = (("lm6d_all", "all", 32, (0.6, 1.1)), ("ape", "ape", 32, (0.6, 1.0)),
+              ("ape_train", "ape", 16, (0.6, 1.0)))
 # The training recipe: experiments/deepim/cfgs/lm6d_ape_iter4_8epoch.yaml.
 # The recipe fine-tunes pretrained FlowNet weights, which the repo does not
 # hold; from seeded random weights its SGD diverges within three steps
@@ -628,6 +638,87 @@ def stress_check(card: str) -> None:
         f"{int(args[2].max())} faces in the longest item) [{card}]")
 
 
+def bin_inputs(kind: str, batch: int, z_range, dev):
+    """(fu, fv, valid, cfg) of a LINEMOD stand-in bank's refinement batch
+    at 480x640, as rasterizer._plan forms them, under the budget
+    tune_raster_for_bank sizes for the bank."""
+    bank = linemod_standin_bank(kind)
+    arrs = tuple(bank[key] for key in ("vertices", "colors", "faces", "face_valid"))
+    cfg = tune_raster_for_bank(EngineConfig(raster=RasterConfig(height=H, width=W)), arrs, LINEMOD_K).raster
+    cls, _, pose0 = linemod_refine_poses(batch, len(arrs[0]), 1, z_range)
+    verts, cols, faces, fvalid = (torch.from_numpy(np.ascontiguousarray(a[cls])).to(dev) for a in arrs)
+    b, nf, _ = faces.shape
+    corners, _ = expand_corners(verts, cols, faces)
+    u, v, z = project_vertices(corners.reshape(b, nf * 3, 3), torch.from_numpy(pose0).to(dev),
+                               _expand_k(torch.from_numpy(LINEMOD_K).to(dev), b))
+    fu, fv, fz = (x.reshape(b, nf, 3) for x in (u, v, z))
+    return fu, fv, _face_validity(fu, fv, fz, fvalid, cfg), cfg
+
+
+def check_csr_bin(card: str, dev) -> dict:
+    """The binning kernels (raster_kernels.csr_bin through
+    rasterizer.csr_segments) against bin_faces_csr on the same card tensors
+    at each BIN_SHAPES shape: offsets, counts and dropped equal, every live
+    segment equal element for element.  Times both: `ms` device time a
+    render's binning (CUDA graph of 20), `call_ms` one call between events,
+    `plain_ms` bin_faces_csr on the card (torch's sort and searchsorted over
+    the budget, so also `library_ms`); `bound_ms` the bytes no binning can
+    avoid at 3.35 TB/s: the corners and validity read once, the real pairs,
+    the tiles' offsets and counts and the dropped counts written once.
+    Returns the first shape's figures, every shape's under `<name>_` keys."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepim_tpu_torch.render.rasterizer import csr_segments
+
+    out = {}
+    for name, kind, batch, z_range in BIN_SHAPES:
+        fu, fv, valid, cfg = bin_inputs(kind, batch, z_range, dev)
+        th, tw = cfg.csr_tile_h, cfg.csr_tile_w
+        fn = lambda: csr_segments(fu, fv, valid, cfg, th, tw)  # noqa: E731
+        plain = lambda: bin_faces_csr(fu, fv, valid, cfg, th, tw)  # noqa: E731
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        for key, x, y in zip(("offsets", "counts", "dropped"), got[1:], ref[1:]):
+            if not torch.equal(x, y):
+                raise AssertionError(f"csr_bin {name}: {key} differ in {int((x != y).sum())} entries")
+        counts = got[2]
+        pairs = int(counts.sum())
+        live = torch.arange(got[0].shape[1], device=dev)[None, :] < counts.sum(1, keepdim=True)
+        if got[0].shape != ref[0].shape or not torch.equal(got[0][live], ref[0][live]):
+            raise AssertionError(f"csr_bin {name}: segments differ")
+        if not pairs:
+            raise AssertionError(f"csr_bin {name}: no pairs binned")
+        ms = graph_launch_ms(fn)
+        call_ms = cuda_ms(fn, reps=20)
+        plain_ms = cuda_ms(plain, reps=5, warmup=1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA and "csr_bin_" in ev.name:
+                key = ev.name[ev.name.index("csr_bin_"):].split("_kernel")[0]
+                split[key] = split.get(key, 0.0) + (ev.time_range.end - ev.time_range.start) / 20 / 1e3
+        b, nf, _ = fu.shape
+        n_tiles = counts.shape[1]
+        nbytes = b * nf * (2 * 3 * 4 + 1) + pairs * 4 + b * n_tiles * 2 * 8 + b * 8
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        fig = {"max_abs_err": 0.0, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "library_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": "bytes", "kernel_ms": {k: round(v, 4) for k, v in split.items()},
+               "real_pairs": pairs, "budget_pairs": b * got[0].shape[1], "max_segment": int(counts.max()),
+               "dropped": int(got[3].sum())}
+        log(f"[csr_bin {name}] vs bin_faces_csr (batch {b}, {nf} faces, pack {cfg.csr_pack}): offsets, counts, "
+            f"dropped ({fig['dropped']}) and {pairs} live pairs equal; {pairs / b:.1f} real pairs a sample against "
+            f"a budget of {got[0].shape[1]}, longest segment {fig['max_segment']}; kernels {ms:.4f} ms a render on "
+            f"the device ({call_ms:.4f} ms a single call), by kernel {fig['kernel_ms']}; bin_faces_csr "
+            f"{plain_ms:.3f} ms; bound {b_ms:.5f} ms ({nbytes} bytes) [{card}]")
+        if not out:
+            out.update(fig)
+        out.update({f"{name}_{key}": val for key, val in fig.items()})
+    return out
+
+
 def launch_counts() -> dict:
     return {name: KERNELS[name].launches for name in KERNELS}
 
@@ -727,6 +818,9 @@ def drive_main_path(label: str, scene, model, dev, card: str, expect: str, min_p
         dropped.append(stats["raster_dropped"])
     counts = launch_counts()
     check_launches(label, counts, expect, min_per_call * (1 + n_calls))
+    bin_launches = rk.csr_bin.launches  # the binning kernels, one set a CSR render
+    if bin_launches != (rk.BIN_KERNELS * counts[expect] if expect != "tile_raster" else 0):
+        raise AssertionError(f"{label}: {bin_launches} binning launches for {counts[expect]} {expect} launches")
     stack = torch.stack(poses).cpu().numpy()
     if not np.isfinite(stack).all():
         raise AssertionError(f"{label}: non-finite poses")
@@ -743,9 +837,9 @@ def drive_main_path(label: str, scene, model, dev, card: str, expect: str, min_p
     ms = [t * 1e3 for t in times]
     mean_s = sum(times) / len(times)
     log(f"[{label}] refine x{ecfg.num_iters} iters, batch {b}: {statistics.median(ms):.2f} ms/call median "
-        f"(min {min(ms):.2f}, max {max(ms):.2f}), {b / mean_s:.2f} frames/s; launches {counts}; "
-        f"orthonormality err {orth:.2g}; min pose delta {min(deltas):.3g} [{card}]")
-    return {"counts": counts, "ms": statistics.median(ms), "frames_s": b / mean_s}
+        f"(min {min(ms):.2f}, max {max(ms):.2f}), {b / mean_s:.2f} frames/s; launches {counts}, "
+        f"csr_bin {bin_launches}; orthonormality err {orth:.2g}; min pose delta {min(deltas):.3g} [{card}]")
+    return {"counts": counts, "bin_launches": bin_launches, "ms": statistics.median(ms), "frames_s": b / mean_s}
 
 
 _FAMILIES = (
@@ -4962,6 +5056,7 @@ def main(argv: list | None = None) -> int:
             raise AssertionError("csr_planes_raster and csr_raster differ on the training render")
         log(f"[csr_planes_raster] equals csr_raster on the training render (hits, face ids, q, rgb) [{card}]")
         stress_check(card)
+        results["csr_bin"] = check_csr_bin(card, dev)
 
         # 3. The eval main path on the CSR kernel in each precision, in turns;
         # 4. the dense kernel; 5. the training path in each precision, in turns.
@@ -4989,6 +5084,7 @@ def main(argv: list | None = None) -> int:
         results["csr_raster"]["launches"] = eval_runs["bf16"][0]["counts"]["csr_raster"]
         results["tile_raster"]["launches"] = counts_dense["tile_raster"]
         results["csr_planes_raster"]["launches"] = train_runs["bf16"][0]["counts"]["csr_planes_raster"]
+        results["csr_bin"]["launches"] = eval_runs["bf16"][0]["bin_launches"]
 
         # 6. Where the time goes, in each precision.
         for mode in PRECISIONS:
@@ -5109,7 +5205,8 @@ def main(argv: list | None = None) -> int:
     # (a1_480x640_train_, a1_480x640_test_ keys), and csr_raster and
     # tile_raster at phase 20's test renders with their launches over its
     # driver runs (imread_ keys).  Without phase 2, the first later figures
-    # of a kernel are its own.
+    # of a kernel are its own.  csr_bin's entry holds its figures at each
+    # BIN_SHAPES shape (phase 2) and its launches on phase 3's eval path.
     base = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
     for name, run in [("csr_raster", dp)] + [(n, next(iter(r.values()))) for n, r in extras.items()]:
         if run is not None and name not in results:
@@ -5118,13 +5215,15 @@ def main(argv: list | None = None) -> int:
     for name, r in results.items():
         entry = {"name": name, "route": "cuda", "source": "deepim_tpu_torch/csrc/raster.cu",
                  "replaces": REPLACES[name], "launches": r["launches"], **{key: r[key] for key in base},
-                 "library_ms": None}
+                 "library_ms": r.get("library_ms")}
+        if name == "csr_bin":
+            entry.update({key: val for key, val in r.items() if key not in entry and key != "launches"})
         if name == "tile_raster" and heavy is not None:
             entry.update({f"heavy_{key}": heavy[key] for key in base})
         for tag, run in (("driver", driver), ("train_driver", trainer)):
             if run is not None and name == "csr_raster":
                 entry.update({f"{tag}_{key}": run[key] for key in CHECK_KEYS})
-        if tracks is not None and name != "csr_planes_raster":
+        if tracks is not None and name in ("csr_raster", "tile_raster"):
             entry.update({f"track_{key}": tracks["sphere" if name == "csr_raster" else "cube"][key]
                           for key in CHECK_KEYS})
         if videos is not None and name == "csr_raster":

@@ -1,6 +1,7 @@
-// Per-tile z-buffer + shading kernels of the rasterizer, for Hopper (sm_90a).
+// Kernels of the rasterizer, for Hopper (sm_90a): per-tile z-buffer +
+// shading, and the CSR binning (further below).
 //
-// Three kernels, each a translation of a Pallas TPU kernel in
+// Three z-buffer kernels, each a translation of a Pallas TPU kernel in
 // deepim_tpu/render/pallas_raster.py (what they compute, not how the TPU
 // computes it):
 //
@@ -133,6 +134,40 @@
 // RASTER_ABLATE (a compile-time value, 0 in every build the package
 // makes): 1 switches the cull off (every face at every pixel of its tile,
 // the same output), so that tools/raster_ablation.py can time what it buys.
+//
+// The CSR binning kernels (csr_bin_count, csr_bin_offsets, csr_bin_scatter,
+// csr_bin_order; launched together by csr_bin_launch) replace no Pallas
+// kernel: they stand where the JAX package's XLA binning stood
+// (rasterizer.bin_faces_csr, its plain version), in place of a torch sort
+// of one key per budget slot.  They build the same CSR segments of (tile,
+// pack unit) pairs over the fine tiles: per sample, offsets and counts of
+// every tile, the dropped-pair count, and each tile's units in ascending
+// order.  What bounds them: reading the units' projected corners (~16 MB
+// at batch 32 of a 21k-face bank) and writing the real pairs (~0.7 MB), a
+// few microseconds at 3.35 TB/s, so launch latency and the atomics on the
+// tiles many units share set the pace.  The work follows the real pairs
+// and the tiles, never the budget (a padded bank's budget was ~700x its
+// real pairs):
+//
+//   1. count    one thread a (sample, unit) forms the union bbox of the
+//               unit's valid on-screen faces with bin_faces_csr's float32
+//               operations (floor of an IEEE division by the tile side,
+//               clamped; the same off-screen test), keeps the first S_u
+//               tiles of the bbox in row-major order (S_u from the per-run
+//               caps of the budget) and adds one to each kept tile's count,
+//               and what it drops to the sample's dropped count (64-bit
+//               atomics in device memory);
+//   2. offsets  one block a sample: the exclusive prefix sum of its tiles'
+//               counts, also as a cursor for step 3;
+//   3. scatter  the same thread again: each kept tile's cursor gives the
+//               unit a slot in that tile's segment (atomics, so the order
+//               within a segment is the atomics' order);
+//   4. order    one warp a tile puts its segment in ascending unit order:
+//               a bitonic network in the warp's shared memory up to 2,048
+//               units, the same network in device memory beyond (correct,
+//               slower; the main path's longest segments hold 350 to 1,300
+//               units).  Unit ids in a segment are distinct, so the result
+//               does not depend on the order of step 3's atomics.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -674,6 +709,207 @@ __global__ void __launch_bounds__(kTileThreads, 1024 / kTileThreads) tile_raster
   }
 }
 
+// ---- The CSR binning: count, offsets, scatter, order ----
+
+constexpr int kBinThreads = 256;     // count and scatter: one (sample, unit) a thread
+constexpr int kOffsetThreads = 1024; // offsets: one block a sample
+constexpr int kOrderWarps = 4;       // order: one tile a warp at a time
+constexpr int kOrderShared = 2048;   // units a warp orders in shared memory
+constexpr int kMaxBinTiers = 64;     // runs of the budget (tune_raster_for_bank makes at most 16)
+
+// The budget: units [end[i - 1], end[i]) keep at most cap[i] tiles each
+// (end[-1] = 0; each cap already at most the tile count).  Passed by value,
+// read with constant indices only, so it stays in the parameter bank.
+struct BinBudget {
+  int n;
+  int end[kMaxBinTiers];
+  int cap[kMaxBinTiers];
+};
+
+struct BinGeometry {
+  int tile_h, tile_w, t_y, t_x, height, width;
+};
+
+__device__ __forceinline__ int unit_cap(const BinBudget& budget, int unit) {
+  int cap = budget.cap[0];
+#pragma unroll
+  for (int i = 1; i < kMaxBinTiers; ++i) {
+    if (i < budget.n && unit >= budget.end[i - 1]) cap = budget.cap[i];
+  }
+  return cap;
+}
+
+// The tile bound of a screen coordinate: rasterizer._bbox_tiles'
+// clamp(floor(x / side), 0, tiles - 1) in float32, then an integer.
+__device__ __forceinline__ int tile_bound(float x, int side, int tiles) {
+  return (int)fminf(fmaxf(floorf(__fdiv_rn(x, (float)side)), 0.0f), (float)(tiles - 1));
+}
+
+// A unit's tile bbox: the union over its valid on-screen faces of their
+// clamped tile bounds, as bin_faces_csr forms it.  False when no face of
+// the unit is valid and on screen.
+struct TileBox {
+  int x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ bool unit_box(const float* __restrict__ fu, const float* __restrict__ fv,
+                                         const bool* __restrict__ valid, size_t face0, int pack,
+                                         const BinGeometry& g, TileBox& box) {
+  bool any = false;
+  box = {g.t_x - 1, 0, g.t_y - 1, 0};
+  for (int j = 0; j < pack; ++j) {
+    const size_t f = face0 + j;
+    if (!valid[f]) continue;
+    const float u0 = fu[3 * f], u1 = fu[3 * f + 1], u2 = fu[3 * f + 2];
+    const float v0 = fv[3 * f], v1 = fv[3 * f + 1], v2 = fv[3 * f + 2];
+    const float umin = fminf(u0, fminf(u1, u2)), umax = fmaxf(u0, fmaxf(u1, u2));
+    const float vmin = fminf(v0, fminf(v1, v2)), vmax = fmaxf(v0, fmaxf(v1, v2));
+    if (umax < 0.0f || umin > (float)(g.width - 1) || vmax < 0.0f || vmin > (float)(g.height - 1)) continue;
+    any = true;
+    box.x0 = min(box.x0, tile_bound(umin, g.tile_w, g.t_x));
+    box.x1 = max(box.x1, tile_bound(umax, g.tile_w, g.t_x));
+    box.y0 = min(box.y0, tile_bound(vmin, g.tile_h, g.t_y));
+    box.y1 = max(box.y1, tile_bound(vmax, g.tile_h, g.t_y));
+  }
+  return any;
+}
+
+// fn(tile) for the first `kept` tiles of the box in row-major order.
+template <typename Fn>
+__device__ __forceinline__ void for_kept_tiles(const TileBox& box, int kept, int t_x, Fn fn) {
+  for (int y = box.y0, slot = 0; slot < kept; ++y) {
+    for (int x = box.x0; x <= box.x1 && slot < kept; ++x, ++slot) fn(y * t_x + x);
+  }
+}
+
+__global__ void __launch_bounds__(kBinThreads) csr_bin_count_kernel(
+    const float* __restrict__ fu, const float* __restrict__ fv,  // (B, F, 3) projected corners
+    const bool* __restrict__ valid,                              // (B, F) render validity
+    unsigned long long* __restrict__ counts,                     // (B, T) pairs a tile, zeroed
+    unsigned long long* __restrict__ dropped,                    // (B,) pairs past the budget, zeroed
+    int batch, int n_units, int pack, BinBudget budget, BinGeometry g) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= batch * n_units) return;
+  const int b = i / n_units, unit = i % n_units;
+  TileBox box;
+  if (!unit_box(fu, fv, valid, (size_t)i * pack, pack, g, box)) return;
+  const int span = (box.x1 - box.x0 + 1) * (box.y1 - box.y0 + 1);
+  const int kept = min(span, unit_cap(budget, unit));
+  if (span > kept) atomicAdd(dropped + b, (unsigned long long)(span - kept));
+  unsigned long long* row = counts + (size_t)b * g.t_y * g.t_x;
+  for_kept_tiles(box, kept, g.t_x, [&](int tile) { atomicAdd(row + tile, 1ull); });
+}
+
+// One block a sample: offsets = the exclusive prefix sum of the sample's
+// tile counts; cursor = the same, in 32 bits, for the scatter's atomics.
+__global__ void __launch_bounds__(kOffsetThreads) csr_bin_offsets_kernel(
+    const long long* __restrict__ counts, long long* __restrict__ offsets, int* __restrict__ cursor,
+    int n_tiles) {
+  __shared__ long long warp_total[kOffsetThreads / 32];
+  const size_t row = (size_t)blockIdx.x * n_tiles;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (n_tiles + kOffsetThreads - 1) / kOffsetThreads;
+  const int lo = min(tid * per, n_tiles), hi = min(lo + per, n_tiles);
+  long long own = 0;
+  for (int t = lo; t < hi; ++t) own += counts[row + t];
+  long long incl = own;  // inclusive sum over the warp's lanes
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long below = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += below;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    long long w = warp_total[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const long long below = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += below;
+    }
+    warp_total[lane] = w;
+  }
+  __syncthreads();
+  long long at = incl - own + (warp ? warp_total[warp - 1] : 0);
+  for (int t = lo; t < hi; ++t) {
+    offsets[row + t] = at;
+    cursor[row + t] = (int)at;
+    at += counts[row + t];
+  }
+}
+
+__global__ void __launch_bounds__(kBinThreads) csr_bin_scatter_kernel(
+    const float* __restrict__ fu, const float* __restrict__ fv, const bool* __restrict__ valid,
+    int* __restrict__ cursor,       // (B, T) each tile's next free slot, from the offsets
+    int* __restrict__ sorted_unit,  // (B, capacity) the segments
+    int batch, int n_units, int pack, int capacity, BinBudget budget, BinGeometry g) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= batch * n_units) return;
+  const int b = i / n_units, unit = i % n_units;
+  TileBox box;
+  if (!unit_box(fu, fv, valid, (size_t)i * pack, pack, g, box)) return;
+  const int span = (box.x1 - box.x0 + 1) * (box.y1 - box.y0 + 1);
+  const int kept = min(span, unit_cap(budget, unit));
+  int* row = cursor + (size_t)b * g.t_y * g.t_x;
+  int* out = sorted_unit + (size_t)b * capacity;
+  for_kept_tiles(box, kept, g.t_x, [&](int tile) { out[atomicAdd(row + tile, 1)] = unit; });
+}
+
+// Ascending order of a[0 .. n) by the warp: a bitonic network whose merges
+// all ascend (each stage's first step compares mirrored positions), so the
+// virtual entries past n, read as +inf, never move and every comparison
+// that reaches one is skipped.  `a` may lie in shared or device memory
+// (__syncwarp orders the warp's accesses to either).
+__device__ void warp_bitonic(int* a, int n, int lane) {
+  int width = 1;
+  while (width < n) width <<= 1;
+  for (int k = 2; k <= width; k <<= 1) {
+    for (int j = k >> 1; j >= 1; j >>= 1) {
+      for (int p = lane; p < width / 2; p += 32) {
+        const int base = (p / j) * 2 * j, off = p % j;
+        const int lo = base + off;
+        const int hi = j == (k >> 1) ? base + 2 * j - 1 - off : lo + j;  // the mirror, then half-cleaners
+        if (hi < n) {
+          const int x = a[lo], y = a[hi];
+          if (x > y) {
+            a[lo] = y;
+            a[hi] = x;
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Resident blocks; warp w of the grid's W takes tiles w, w + W, ... with
+// the next tile's count already loaded, so an empty tile costs one load.
+__global__ void __launch_bounds__(32 * kOrderWarps) csr_bin_order_kernel(
+    const long long* __restrict__ offsets, const long long* __restrict__ counts,
+    int* __restrict__ sorted_unit, int n_segments, int n_tiles, int capacity) {
+  __shared__ int stage[kOrderWarps][kOrderShared];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int stride = gridDim.x * kOrderWarps;
+  int s = blockIdx.x * kOrderWarps + warp;
+  long long next = s < n_segments ? counts[s] : 0;
+  for (; s < n_segments; s += stride) {
+    const int n = (int)next;
+    if (s + stride < n_segments) next = counts[s + stride];
+    if (n < 2) continue;
+    int* seg = sorted_unit + (size_t)(s / n_tiles) * capacity + offsets[s];
+    if (n <= kOrderShared) {
+      int* own = stage[warp];
+      for (int p = lane; p < n; p += 32) own[p] = seg[p];
+      __syncwarp();
+      warp_bitonic(own, n, lane);
+      for (int p = lane; p < n; p += 32) seg[p] = own[p];
+    } else {
+      warp_bitonic(seg, n, lane);
+    }
+    __syncwarp();  // the stage is free again
+  }
+}
+
 // Blocks of `threads` threads that the card holds at once: a kernel's grid.
 int resident_blocks(const void* kernel, int threads) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -729,4 +965,58 @@ extern "C" int tile_raster_launch(const void* records, const void* tf_global,
         cull_block_shape(tile_w, tile_pixels / tile_w));
   }
   return (int)cudaGetLastError();
+}
+
+// The four binning kernels in turn on one stream.  tallies: (B * T + B)
+// int64, the counts then the dropped counts, zeroed here; offsets (B, T)
+// int64; cursor (B, T) int32 scratch; sorted_unit (B, capacity) int32.
+// *launched: the kernels launched (4; fewer for an empty batch or bank).
+extern "C" int csr_bin_launch(const void* fu, const void* fv, const void* valid, void* sorted_unit,
+                              void* offsets, void* tallies, void* cursor, int batch, int n_units,
+                              int pack, int capacity, const int* tier_end, const int* tier_cap,
+                              int n_tiers, int tile_h, int tile_w, int height, int width, void* stream,
+                              int* launched) {
+  *launched = 0;
+  if (n_tiers < 1 || n_tiers > kMaxBinTiers || pack < 1 || tile_h < 1 || tile_w < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  BinBudget budget = {};
+  budget.n = n_tiers;
+  for (int i = 0; i < n_tiers; ++i) {
+    budget.end[i] = tier_end[i];
+    budget.cap[i] = tier_cap[i];
+  }
+  const BinGeometry g = {tile_h, tile_w, (height + tile_h - 1) / tile_h, (width + tile_w - 1) / tile_w,
+                         height, width};
+  const int n_tiles = g.t_y * g.t_x;
+  const cudaStream_t s = (cudaStream_t)stream;
+  unsigned long long* counts = (unsigned long long*)tallies;
+  cudaError_t rc = cudaMemsetAsync(tallies, 0, ((size_t)batch * n_tiles + batch) * sizeof(long long), s);
+  if (rc != cudaSuccess || batch == 0) return (int)rc;
+  const int items = batch * n_units;
+  const int bin_blocks = (items + kBinThreads - 1) / kBinThreads;
+  if (items > 0) {
+    csr_bin_count_kernel<<<bin_blocks, kBinThreads, 0, s>>>(
+        (const float*)fu, (const float*)fv, (const bool*)valid, counts, counts + (size_t)batch * n_tiles,
+        batch, n_units, pack, budget, g);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+    ++*launched;
+  }
+  csr_bin_offsets_kernel<<<batch, kOffsetThreads, 0, s>>>((const long long*)tallies, (long long*)offsets,
+                                                          (int*)cursor, n_tiles);
+  if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+  ++*launched;
+  if (items > 0) {
+    csr_bin_scatter_kernel<<<bin_blocks, kBinThreads, 0, s>>>(
+        (const float*)fu, (const float*)fv, (const bool*)valid, (int*)cursor, (int*)sorted_unit, batch,
+        n_units, pack, capacity, budget, g);
+    if ((rc = cudaGetLastError()) != cudaSuccess) return (int)rc;
+    ++*launched;
+  }
+  const int segments = batch * n_tiles;
+  static const int resident = resident_blocks((const void*)csr_bin_order_kernel, 32 * kOrderWarps);
+  csr_bin_order_kernel<<<min((segments + kOrderWarps - 1) / kOrderWarps, resident), 32 * kOrderWarps, 0, s>>>(
+      (const long long*)offsets, (const long long*)tallies, (int*)sorted_unit, segments, n_tiles, capacity);
+  if ((rc = cudaGetLastError()) == cudaSuccess) ++*launched;
+  return (int)rc;
 }

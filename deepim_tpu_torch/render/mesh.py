@@ -510,13 +510,13 @@ def order_faces_for_binning(mesh: Mesh) -> Mesh:
                 normals=mesh.normals, uv=mesh.uv, texture=mesh.texture)
 
 
-def make_mixed_detail_mesh(seed: int = 0) -> Mesh:
-    """Heavy-tailed triangle-size mesh (~20.9k faces): subdiv-5, -2 and -1
-    icosphere shells (~2 px, ~15-25 px and ~30-60 px faces at 0.6 m),
-    ordered by size band."""
+def make_mixed_detail_mesh(seed: int = 0, fine_subdiv: int = 5) -> Mesh:
+    """Heavy-tailed triangle-size mesh (~20.9k faces): subdiv-5 (or
+    `fine_subdiv`), -2 and -1 icosphere shells (~2 px, ~15-25 px and
+    ~30-60 px faces at 0.6 m), ordered by size band."""
     rng = np.random.RandomState(seed)
     parts = [
-        make_icosphere(0.045, 5),
+        make_icosphere(0.045, fine_subdiv),
         make_icosphere(0.058, 2),
         make_icosphere(0.072, 1),
     ]

@@ -1,8 +1,10 @@
-"""The rasterizer's per-tile z-buffer + shading kernels: CUDA wrappers,
-their plain PyTorch twins, launch counters and the nvcc build.
+"""The rasterizer's per-tile z-buffer + shading kernels and its CSR binning
+kernels: CUDA wrappers, their plain PyTorch twins, launch counters and the
+nvcc build.
 
-Counterpart of deepim_tpu/render/pallas_raster.py.  Three kernels, all in
-csrc/raster.cu (the source explains their design and what bounds them):
+Counterpart of deepim_tpu/render/pallas_raster.py.  Three z-buffer kernels,
+all in csrc/raster.cu (the source explains their design and what bounds
+them):
 
 * csr_raster  replaces pallas_raster._csr_chunk_kernel ("slots8", launched
   by pallas_csr_group): one 16x8 fine tile per work item, walking the
@@ -38,6 +40,12 @@ kernel culls in the same way over tiles of up to 1,024 pixels (up to 64
 blocks), with the cull spread over the whole thread block; its faces cover
 many pixels, so it then gives every pixel a thread that walks its block's
 surviving faces in list order and keeps the winner in registers.
+
+csr_bin launches the binning kernels of the same file (count, offsets,
+scatter, order), which replace no Pallas kernel: on CUDA tensors they build
+rasterizer.bin_faces_csr's CSR segments from the real (tile, unit) pairs,
+where that plain version sorts one key per budget slot.  It takes CUDA
+tensors only; rasterizer.csr_segments picks it or bin_faces_csr by device.
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain twin only for CPU tensors; there is no fallback from one to the
@@ -132,6 +140,12 @@ def build_library(extra_flags: tuple = (), source: Path = SOURCE):
     lib.csr_planes_raster_launch.restype = ci
     lib.tile_raster_launch.argtypes = [vp] * 5 + [ci] * 4 + [vp]
     lib.tile_raster_launch.restype = ci
+    # tools/raster_ablation.py builds another commit's raster.cu, which may
+    # predate the binning kernels.
+    if hasattr(lib, "csr_bin_launch"):
+        ip = ctypes.POINTER(ci)
+        lib.csr_bin_launch.argtypes = [vp] * 7 + [ci] * 4 + [ip, ip] + [ci] * 5 + [vp, ip]
+        lib.csr_bin_launch.restype = ci
     return lib, seconds, log, str(so)
 
 
@@ -146,14 +160,14 @@ def load_library():
 
 
 def reset_launch_counts() -> None:
-    for wrapper in (csr_raster, csr_planes_raster, tile_raster):
+    for wrapper in (csr_raster, csr_planes_raster, tile_raster, csr_bin):
         wrapper.launches = 0
         wrapper.launches_by_device = {}
 
 
-def _count_launch(wrapper, dev: torch.device) -> None:
-    wrapper.launches += 1
-    wrapper.launches_by_device[dev.index] = wrapper.launches_by_device.get(dev.index, 0) + 1
+def _count_launch(wrapper, dev: torch.device, n: int = 1) -> None:
+    wrapper.launches += n
+    wrapper.launches_by_device[dev.index] = wrapper.launches_by_device.get(dev.index, 0) + n
 
 
 def _check_cuda_args(name, tensors, dtypes):
@@ -498,6 +512,66 @@ def tile_raster(records, tf_global, counts, tile_xy, tile_h: int, tile_w: int):
     _launch_check("tile_raster", rc)
     _count_launch(tile_raster, dev)
     return out
+
+
+# The binning kernels csr_bin launches a call (fewer for an empty batch or
+# bank), and the most budget runs their by-value table holds (csrc/raster.cu:
+# kMaxBinTiers).
+BIN_KERNELS = 4
+MAX_BIN_TIERS = 64
+
+
+def csr_bin(fu, fv, valid, tiers, capacity: int, pack: int, tile_h: int, tile_w: int,
+            height: int, width: int):
+    """CSR binning of (tile, pack unit) pairs on the card: bin_faces_csr's
+    contract (render/rasterizer.py, its plain version), from a count, a
+    prefix sum, a scatter and an in-segment order over the real pairs.
+
+    fu, fv (B, F, 3) f32 projected corners; valid (B, F) bool; tiers
+    ((end unit, cap), ...) the budget's runs of units, each cap at most the
+    tile count, the last end F // pack; capacity the pairs a sample may
+    keep (the caps' sum).  Returns sorted_unit (B, capacity) i32 (each
+    tile's units ascending at its offset; entries past the sample's pairs
+    are unspecified), offsets (B, T) i64, counts (B, T) i64 and dropped
+    (B,) i64, T the tile_h x tile_w tiles of a height x width image.  CUDA
+    tensors only; counts the kernels it launched (BIN_KERNELS)."""
+    dev = fu.device
+    if dev.type != "cuda":
+        raise ValueError(f"csr_bin: CUDA tensors only, got {dev} (rasterizer.bin_faces_csr is the plain version)")
+    _check_cuda_args("csr_bin", (fu, fv, valid), (torch.float32, torch.float32, torch.bool))
+    b, nf = valid.shape
+    if fu.shape != (b, nf, 3) or fv.shape != (b, nf, 3):
+        raise ValueError(f"csr_bin: corners {tuple(fu.shape)} / {tuple(fv.shape)} do not match valid {(b, nf)}")
+    if pack <= 0 or nf % pack:
+        raise ValueError(f"csr_bin: pack {pack} must divide the {nf} faces")
+    n_units = nf // pack
+    tiers = tuple((int(e), int(c)) for e, c in tiers)
+    ends = [e for e, _ in tiers]
+    if not 1 <= len(tiers) <= MAX_BIN_TIERS or ends != sorted(ends) or ends[-1] != n_units:
+        raise ValueError(f"csr_bin: budget runs {tiers} must ascend to {n_units} units, at most "
+                         f"{MAX_BIN_TIERS} of them")
+    t_y, t_x = -(-height // tile_h), -(-width // tile_w)
+    n_tiles = t_y * t_x
+    if b * max(n_units, n_tiles) >= 2**31 or capacity >= 2**31:
+        raise ValueError("csr_bin: batch, units, tiles or capacity exceed 32-bit indexing")
+    sorted_unit = torch.empty((b, capacity), dtype=torch.int32, device=dev)
+    offsets = torch.empty((b, n_tiles), dtype=torch.int64, device=dev)
+    tallies = torch.empty(b * n_tiles + b, dtype=torch.int64, device=dev)
+    cursor = torch.empty((b, n_tiles), dtype=torch.int32, device=dev)
+    tier_end = (ctypes.c_int * len(tiers))(*ends)
+    tier_cap = (ctypes.c_int * len(tiers))(*(c for _, c in tiers))
+    launched = ctypes.c_int(0)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.csr_bin_launch(
+            fu.data_ptr(), fv.data_ptr(), valid.data_ptr(), sorted_unit.data_ptr(), offsets.data_ptr(),
+            tallies.data_ptr(), cursor.data_ptr(), b, n_units, int(pack), int(capacity), tier_end, tier_cap,
+            len(tiers), int(tile_h), int(tile_w), int(height), int(width), stream, ctypes.byref(launched),
+        )
+    _count_launch(csr_bin, dev, launched.value)
+    _launch_check("csr_bin", rc)
+    return sorted_unit, offsets, tallies[:b * n_tiles].view(b, n_tiles), tallies[b * n_tiles:]
 
 
 reset_launch_counts()

@@ -8,10 +8,14 @@ Pipeline, all batched:
      or, for csr_kernel="planes64", the raw corner pack (build_raw_pack)
      from which the kernel derives the same planes;
   3. tile binning: dense per-tile face lists (bin_faces) or exact CSR
-     segments of (tile, pack-unit) pairs over 16x8 fine tiles
-     (bin_faces_csr), with the per-unit tile budget and dropped-pair count;
-  4. one count-sorted work list over all (sample, tile) pairs, keeping the
-     `active_tiles` budget;
+     segments of (tile, pack-unit) pairs over 16x8 fine tiles, each tile's
+     units ascending, with the per-unit tile budget (csr_budget) and the
+     dropped-pair count (csr_segments: on the card the binning kernels
+     count, place and order the real pairs, raster_kernels.csr_bin; on the
+     CPU bin_faces_csr sorts one key per budget slot);
+  4. one count-sorted work list over all (sample, tile) pairs (a stable
+     torch sort of the tiles' pair counts), keeping the `active_tiles`
+     budget;
   5. the z-buffer + shade kernel (raster_kernels.csr_raster,
      csr_planes_raster or tile_raster: CUDA on the card, plain twins on
      CPU);
@@ -30,7 +34,8 @@ selects the kernel (CSR when binning == "csr", or "auto" with more than
 across and is ignored: the plain twins take the XLA fallback's place on the
 CPU.  The JAX package's TPU machinery (group scan under lax.cond, 8-slot
 merges, MXU prefix sums, one-hot histograms, inverse-permutation gathers)
-is replaced by plain torch ops (sort, searchsorted, cumsum, indexing).
+is replaced by plain torch ops (sort, searchsorted, cumsum, indexing) and,
+for the CSR binning on the card, by kernels of csrc/raster.cu.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from deepim_tpu_torch.device import resolve_device
 from deepim_tpu_torch.render.raster_kernels import (
     RAW_WIDTH,
     build_face_records,
+    csr_bin,
     csr_planes_raster,
     csr_raster,
     tile_raster,
@@ -172,16 +178,36 @@ def _csr_pack_for(cfg: RasterConfig, f: int) -> int:
     return pack
 
 
+def csr_budget(cfg: RasterConfig, n_units: int, n_tiles: int):
+    """The CSR pair budget: ((end unit, S), ...), runs of units that keep
+    at most S of their bbox tiles each (bin_pairs // units, 8 by default,
+    or csr_tiers' runs), S at most n_tiles, the last run ending at
+    n_units; and the capacity, the pairs a sample may keep (the sum of
+    every unit's S)."""
+    if cfg.csr_tiers:
+        tiers = tuple((int(e), min(int(s), n_tiles)) for e, s in cfg.csr_tiers)
+        if tiers[-1][0] != n_units:
+            raise ValueError(
+                f"csr_tiers cover {tiers[-1][0]} units but the mesh has {n_units} "
+                "(padded faces / csr_pack changed since tune_raster_for_bank)"
+            )
+    else:
+        s = min(max(cfg.bin_pairs // n_units, 1), n_tiles) if cfg.bin_pairs else min(8, n_tiles)
+        tiers = ((n_units, s),)
+    capacity = sum((end - (tiers[i - 1][0] if i else 0)) * s for i, (end, s) in enumerate(tiers))
+    return tiers, capacity
+
+
 def bin_faces_csr(fu, fv, valid, cfg: RasterConfig, th=None, tw=None):
     """Sparse binning, batched: (tile, unit) overlap pairs, a unit being
     csr_pack consecutive faces (union bbox of its valid faces).
 
     Each unit enumerates its bbox tiles in row-major order into a static
-    budget of S slots (bin_pairs // units, 8 by default, or per-tier
-    budgets from csr_tiers); pairs past the budget are dropped and counted.
-    Returns (sorted_unit (B, N) int32, units ascending within each tile and
-    U = invalid; offsets (B, T) int64; counts (B, T) int64; dropped (B,)
-    int64)."""
+    budget of S slots (csr_budget); pairs past the budget are dropped and
+    counted.  Returns (sorted_unit (B, N) int32, units ascending within
+    each tile and U = invalid, N the budget's capacity; offsets (B, T)
+    int64; counts (B, T) int64; dropped (B,) int64).  The plain version of
+    raster_kernels.csr_bin, on any device."""
     th = cfg.tile_h if th is None else th
     tw = cfg.tile_w if tw is None else tw
     t_y, t_x = -(-cfg.height // th), -(-cfg.width // tw)
@@ -218,25 +244,15 @@ def bin_faces_csr(fu, fv, valid, cfg: RasterConfig, th=None, tw=None):
         d = torch.where(okm[..., 0], torch.clamp(spanm[..., 0] - s_t, min=0), 0).sum(-1)
         return k.reshape(b, -1), d
 
-    if cfg.csr_tiers:
-        ends = [int(e) for e, _ in cfg.csr_tiers]
-        if ends[-1] != f:
-            raise ValueError(
-                f"csr_tiers cover {ends[-1]} units but the mesh has {f} "
-                "(padded faces / csr_pack changed since tune_raster_for_bank)"
-            )
-        keys, drops = [], []
-        u0 = 0
-        for u1, s_t in cfg.csr_tiers:
-            k, d = tier_keys(u0, int(u1), min(int(s_t), n_tiles))
-            keys.append(k)
-            drops.append(d)
-            u0 = int(u1)
-        key = torch.cat(keys, dim=1)
-        dropped = torch.stack(drops).sum(0)
-    else:
-        s = min(max(cfg.bin_pairs // f, 1), n_tiles) if cfg.bin_pairs else min(8, n_tiles)
-        key, dropped = tier_keys(0, f, s)
+    keys, drops = [], []
+    u0 = 0
+    for u1, s_t in csr_budget(cfg, f, n_tiles)[0]:
+        k, d = tier_keys(u0, u1, s_t)
+        keys.append(k)
+        drops.append(d)
+        u0 = u1
+    key = torch.cat(keys, dim=1)
+    dropped = torch.stack(drops).sum(0)
     key = torch.sort(key, dim=1).values  # keys are unique per sample
     sorted_unit = torch.where(key < n_tiles * f, key % f, torch.full_like(key, f)).int()
     # Tile t's pairs are the sorted keys in [t * f, (t + 1) * f): their
@@ -247,6 +263,20 @@ def bin_faces_csr(fu, fv, valid, cfg: RasterConfig, th=None, tw=None):
     offsets = first[:, :n_tiles]
     counts = first[:, 1:] - offsets
     return sorted_unit, offsets, counts, dropped
+
+
+def csr_segments(fu, fv, valid, cfg: RasterConfig, th: int, tw: int):
+    """bin_faces_csr's outputs over th x tw tiles, from the binning kernels
+    for CUDA tensors (raster_kernels.csr_bin, whose work follows the real
+    pairs) and from bin_faces_csr for CPU tensors."""
+    if fu.device.type != "cuda":
+        return bin_faces_csr(fu, fv, valid, cfg, th, tw)
+    nfaces = fu.shape[1]
+    pack = _csr_pack_for(cfg, nfaces)
+    t_y, t_x = -(-cfg.height // th), -(-cfg.width // tw)
+    tiers, capacity = csr_budget(cfg, nfaces // pack, t_y * t_x)
+    return csr_bin(fu.contiguous(), fv.contiguous(), valid.contiguous(), tiers, capacity, pack, th, tw,
+                   cfg.height, cfg.width)
 
 
 def build_raw_pack(fu, fv, fq, fcol, valid):
@@ -306,7 +336,7 @@ def csr_dropped_pairs(vertices, faces, face_valid, poses, k, cfg: RasterConfig,
     idx = faces.reshape(b, nf * 3).long()
     fu, fv, fz = (torch.gather(a, 1, idx).reshape(b, nf, 3) for a in (u, v, z))
     valid = _face_validity(fu, fv, fz, face_valid, cfg)
-    _, _, _, dropped = bin_faces_csr(fu, fv, valid, cfg, th=cfg.csr_tile_h, tw=cfg.csr_tile_w)
+    _, _, _, dropped = csr_segments(fu, fv, valid, cfg, th=cfg.csr_tile_h, tw=cfg.csr_tile_w)
     return dropped.sum()
 
 
@@ -420,7 +450,7 @@ def _plan(faces, face_valid, poses, kb, corners, corner_colors, cfg) -> _Plan:
     )
 
     if use_csr:
-        sorted_unit, offsets, counts, dropped = bin_faces_csr(fu, fv, valid, cfg, th=th, tw=tw)
+        sorted_unit, offsets, counts, dropped = csr_segments(fu, fv, valid, cfg, th=th, tw=tw)
         dropped_total = dropped.sum()
     else:
         bc = cfg.bin_batch_chunk if cfg.bin_batch_chunk and b > cfg.bin_batch_chunk else b

@@ -57,6 +57,58 @@ def sample_perturbed_pose(pose: np.ndarray, rng: np.random.RandomState, rot_std_
     return out
 
 
+# LINEMOD's 13 objects (ape, benchvise, camera, can, cat, driller, duck,
+# eggbox, glue, holepuncher, iron, lamp, phone): diameters in mm, as the
+# dataset's models_info.txt gives them.
+LINEMOD_DIAMETERS_MM = (102.099, 247.506, 172.492, 201.404, 154.546, 261.472, 108.999, 164.628, 175.889,
+                        145.543, 278.078, 282.601, 212.358)
+
+
+def linemod_standin_bank(kind: str) -> dict:
+    """Stand-ins for LINEMOD's models (not in the repository) at their
+    diameters, as MeshBank arrays padded to 256 faces: "ape" the ape as a
+    20,480-face icosphere; "all" the 13 objects as heavy-tailed mixed-detail
+    meshes (make_mixed_detail_mesh seeded by the class index, fine shells of
+    subdivision 5 and 4 in turn: 20,880 or 5,520 faces), each scaled so its
+    largest vertex distance is the diameter."""
+    from scipy.spatial import ConvexHull
+    from scipy.spatial.distance import pdist
+
+    from deepim_tpu_torch.render.mesh import MeshBank, make_icosphere, make_mixed_detail_mesh
+
+    if kind == "ape":
+        meshes = [make_icosphere(LINEMOD_DIAMETERS_MM[0] / 2000.0, 5)]
+    elif kind == "all":
+        meshes = []
+        for i, d_mm in enumerate(LINEMOD_DIAMETERS_MM):
+            m = make_mixed_detail_mesh(i, fine_subdiv=5 - i % 2)
+            span = pdist(m.vertices[ConvexHull(m.vertices).vertices]).max()
+            m.vertices = (m.vertices * (d_mm / 1000.0 / span)).astype(np.float32)
+            meshes.append(m)
+    else:
+        raise ValueError(f"unknown stand-in bank {kind!r} (ape, all)")
+    return MeshBank.from_meshes(meshes, pad_multiple=256).arrays()
+
+
+def linemod_refine_poses(batch: int, n_classes: int, seed: int, z_range=(0.6, 1.1),
+                         k: np.ndarray = LINEMOD_K) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A refinement batch's (class ids (B,) int64, gt poses, initial poses
+    (B, 3, 4) float32): classes evenly over the batch in a shuffled order,
+    one depth in each 1/B slice of z_range, the object's centre projected
+    uniformly into u 200-440, v 150-330 px, uniform rotations, initial poses
+    by sample_perturbed_pose."""
+    rng = np.random.default_rng(seed)
+    cls = np.resize(np.arange(n_classes), batch)
+    rng.shuffle(cls)
+    z_lo, z_hi = z_range
+    z = z_lo + (rng.permutation(batch) + rng.uniform(size=batch)) / batch * (z_hi - z_lo)
+    u, v = rng.uniform(200, 440, batch), rng.uniform(150, 330, batch)
+    t = np.stack([(u - k[0, 2]) * z / k[0, 0], (v - k[1, 2]) * z / k[1, 1], z], -1)
+    gt = np.concatenate([R.random(batch, random_state=rng).as_matrix(), t[:, :, None]], -1).astype(np.float32)
+    pose0 = np.stack([sample_perturbed_pose(g, rng) for g in gt]).astype(np.float32)
+    return cls.astype(np.int64), gt, pose0
+
+
 def _write_models(devkit_path: str, meshes: dict) -> None:
     """models/<class>/points.xyz and textured.obj, and models_info.txt
     (id, diameter in mm) with ids 1..C in sorted class order."""

@@ -383,3 +383,146 @@ def test_rasterize_textured_card_equals_cpu(n_lat, n_lon):
     assert torch.equal(depth_g.cpu() > 0, depth_c > 0) and (depth_c > 0).sum() > 1000
     torch.testing.assert_close(depth_g.cpu(), depth_c, atol=1e-5, rtol=0)
     torch.testing.assert_close(rgb_g.cpu(), rgb_c, atol=5e-3, rtol=0)
+
+
+def _bench_scene(kind: str, batch: int, dev, z_range=(0.6, 1.1), **raster):
+    """A LINEMOD stand-in bank (synth_data.linemod_standin_bank: "all" the
+    13 padded mixed-detail meshes, "ape" the ape's icosphere) at 480x640
+    with LINEMOD K, the budget tune_raster_for_bank sizes for it (`raster`
+    fields first), and a refinement batch's initial poses over z_range
+    (synth_data.linemod_refine_poses, seed 1), each sample's class mesh."""
+    from deepim_tpu_torch.engine.refine import EngineConfig, tune_raster_for_bank
+    from deepim_tpu_torch.tools.synth_data import linemod_refine_poses, linemod_standin_bank
+
+    bank = linemod_standin_bank(kind)
+    arrs = tuple(bank[key] for key in ("vertices", "colors", "faces", "face_valid"))
+    cfg = tune_raster_for_bank(EngineConfig(raster=RasterConfig(height=480, width=640, **raster)), arrs,
+                               LINEMOD_K).raster
+    cls, _, pose0 = linemod_refine_poses(batch, len(arrs[0]), 1, z_range)
+    mesh = [torch.from_numpy(np.ascontiguousarray(a[cls])).to(dev) for a in arrs]
+    return (*mesh, torch.from_numpy(pose0).to(dev), torch.from_numpy(LINEMOD_K).to(dev), cfg)
+
+
+def _bin_case(case: str, dev):
+    """(vertices, colors, faces, face_valid, poses, k, cfg) of a binning case."""
+    from deepim_tpu_torch.engine.refine import EngineConfig, tune_raster_for_bank
+    from deepim_tpu_torch.render.mesh import MeshBank, make_mixed_detail_mesh
+
+    if case == "lm6d_all":
+        return _bench_scene("all", 32, dev)
+    if case == "ape":
+        return _bench_scene("ape", 32, dev, (0.6, 1.0))
+    if case.startswith("pack"):
+        return _bench_scene("ape", 8, dev, (0.6, 1.0), csr_pack=int(case[4:]))
+    if case == "tiered":
+        # test_csr_tiers_match_uniform_on_mixed_mesh's scene.
+        bank = MeshBank.from_meshes([make_mixed_detail_mesh(0)], pad_multiple=64)
+        arrs = (bank.vertices, bank.colors, bank.faces, bank.face_valid)
+        cfg = RasterConfig(height=96, width=128, znear=0.05, chunk=16)
+        k = np.array([[300.0, 0, 64.0], [0, 300.0, 48.0], [0, 0, 1]], np.float32)
+        cfg = tune_raster_for_bank(EngineConfig(height=96, width=128, raster=cfg), arrs, k, z_min=0.45).raster
+        assert len(cfg.csr_tiers) >= 2
+        from scipy.spatial.transform import Rotation
+
+        pose = np.concatenate([Rotation.random(4, random_state=5).as_matrix().astype(np.float32),
+                               np.zeros((4, 3, 1), np.float32)], 2)
+        pose[:, 2, 3] = (0.55, 0.7, 0.5, 1.2)
+        mesh = [torch.from_numpy(np.repeat(a, 4, 0)).to(dev) for a in arrs]
+        return (*mesh, torch.from_numpy(pose).to(dev), torch.from_numpy(k).to(dev), cfg)
+    if case in ("near", "invalid"):
+        # near: a budget sized for z >= 2.5 m at 0.26-0.35 m, so units drop
+        # pairs; invalid: sample 1 has no valid face, sample 2 lies behind
+        # the camera.
+        *scene, pose, k, cfg = _bench_scene("ape", 4, dev, (0.6, 1.0))
+        if case == "near":
+            bank = tuple(x[:1].cpu().numpy() for x in scene[:4])
+            cfg = tune_raster_for_bank(EngineConfig(raster=dataclasses.replace(cfg, bin_pairs=0)), bank,
+                                       LINEMOD_K, z_min=2.5).raster
+            pose = pose.clone()
+            pose[:, 2, 3] = torch.tensor([0.26, 0.29, 0.32, 0.35], device=dev)
+        else:
+            scene[3] = scene[3].clone()
+            scene[3][1] = False
+            pose = pose.clone()
+            pose[2, 2, 3] = -0.8
+        return (*scene, pose, k, cfg)
+    assert case == "long"
+    # 5,000 overlapping triangles of 30-120 px around the image's centre in
+    # two samples: segments over 2,048 units (ordered in device memory)
+    # and up to 2,048 (shared memory).
+    g = np.random.default_rng(7)
+    n = 5000
+    centre = g.uniform(-0.02, 0.02, (2, n, 1, 2))
+    corners = centre + g.uniform(-0.05, 0.05, (2, n, 3, 2))
+    z = g.uniform(0.5, 0.9, (2, n, 3, 1))
+    verts = np.concatenate([corners * z / 0.5, z], -1).reshape(2, 3 * n, 3).astype(np.float32)
+    cols = g.uniform(0, 255, verts.shape).astype(np.float32)
+    faces = np.tile(np.arange(3 * n, dtype=np.int32).reshape(1, n, 3), (2, 1, 1))
+    pose = np.tile(np.eye(3, 4, dtype=np.float32), (2, 1, 1))
+    cfg = RasterConfig(height=480, width=640, binning="csr", csr_pack=1, bin_pairs=n * 30 * 80)
+    mesh = [torch.from_numpy(a).to(dev) for a in (verts, cols, faces, np.ones((2, n), bool))]
+    return (*mesh, torch.from_numpy(pose).to(dev), torch.from_numpy(LINEMOD_K).to(dev), cfg)
+
+
+@pytest.mark.parametrize("case", ["lm6d_all", "ape", "tiered", "near", "pack1", "pack2", "pack4",
+                                  "invalid", "long"])
+def test_csr_bin_kernels_equal_plain_binning(case, monkeypatch):
+    """The binning kernels (raster_kernels.csr_bin, rasterizer.csr_segments'
+    route for CUDA tensors) against bin_faces_csr on the same card tensors:
+    offsets, counts and dropped equal and every live segment equal element
+    for element; no host sync (sync debug mode "error"); four launches a
+    render and no other kernel in the trace (no sort over the budget); and
+    rasterize's rgb and depth bit-identical through either route."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepim_tpu_torch.render import rasterizer
+    from deepim_tpu_torch.render.rasterizer import (
+        _expand_k, _face_validity, bin_faces_csr, csr_segments, expand_corners, project_vertices)
+
+    dev = _need_card()
+    verts, cols, faces, fvalid, pose, k, cfg = _bin_case(case, dev)
+    b, nf, _ = faces.shape
+    corners, _ = expand_corners(verts, cols, faces)
+    u, v, z = project_vertices(corners.reshape(b, nf * 3, 3), pose, _expand_k(k, b))
+    fu, fv, fz = (x.reshape(b, nf, 3) for x in (u, v, z))
+    valid = _face_validity(fu, fv, fz, fvalid, cfg)
+    th, tw = cfg.csr_tile_h, cfg.csr_tile_w
+    csr_segments(fu, fv, valid, cfg, th, tw)  # builds the library
+    torch.cuda.synchronize()
+    before = rk.csr_bin.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = csr_segments(fu, fv, valid, cfg, th, tw)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert rk.csr_bin.launches == before + rk.BIN_KERNELS
+    kernels = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memset", "Memcpy"))}
+    assert len(kernels) == rk.BIN_KERNELS and all("csr_bin_" in name for name in kernels), kernels
+    ref = bin_faces_csr(fu, fv, valid, cfg, th, tw)
+    assert got[0].shape == ref[0].shape and got[0].dtype == ref[0].dtype
+    for name, x, y in zip(("offsets", "counts", "dropped"), got[1:], ref[1:]):
+        assert torch.equal(x, y), name
+    counts = got[2]
+    live = torch.arange(got[0].shape[1], device=dev)[None, :] < counts.sum(1, keepdim=True)
+    assert torch.equal(got[0][live], ref[0][live])
+    assert int(counts.sum()) > 0
+    if case == "near":
+        assert int(got[3].sum()) > 0
+    if case == "invalid":
+        assert int(counts[1].sum()) == 0 and int(counts[2].sum()) == 0 and int(counts[0].sum()) > 0
+    if case == "long":
+        assert int(counts.max()) > 2048 and int(((counts > 32) & (counts <= 2048)).sum()) > 0
+
+    args = (verts, cols, faces, fvalid, pose, k, cfg)
+    before = rk.csr_bin.launches
+    rgb_k, depth_k, dropped_k = rasterize(*args, with_stats=True, device=dev)
+    assert rk.csr_bin.launches == before + rk.BIN_KERNELS
+    monkeypatch.setattr(rasterizer, "csr_segments", bin_faces_csr)
+    rgb_p, depth_p, dropped_p = rasterize(*args, with_stats=True, device=dev)
+    assert rk.csr_bin.launches == before + rk.BIN_KERNELS
+    torch.cuda.synchronize()
+    assert (depth_k > 0).any()
+    assert torch.equal(rgb_k, rgb_p) and torch.equal(depth_k, depth_p) and torch.equal(dropped_k, dropped_p)

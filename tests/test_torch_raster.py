@@ -207,6 +207,40 @@ def test_bin_faces_csr_matches_jax(rng):
             np.testing.assert_array_equal(x.numpy(), np.asarray(y), err_msg=f"{kw} {name}")
 
 
+@pytest.mark.parametrize("pack", [1, 2, 4])
+@pytest.mark.parametrize("mesh_name", ["ico4", "mixed"])
+def test_csr_budget_caps_and_capacity(mesh_name, pack):
+    """csr_budget, the budget as the card's binning kernels take it, over a
+    tuned uniform (icosphere) or tiered (mixed-detail) bank at packs 1, 2
+    and 4: each unit's cap is the number of tiles JAX's bin_faces_csr keeps
+    for it when its faces span the whole image, the drops are the rest,
+    and the capacity is the tuner's bin_pairs and the width of both
+    packages' pair lists."""
+    mesh = j_ico(0.05, 4) if mesh_name == "ico4" else j_mixed(0)
+    bank = JMeshBank.from_meshes([mesh], pad_multiple=64)
+    arrs = (bank.vertices, bank.colors, bank.faces, bank.face_valid)
+    jcfg, tcfg = _cfgs(binning="csr", csr_pack=pack)
+    tcfg = t_tune(TEngineConfig(height=96, width=128, raster=tcfg), arrs, K_MAT, z_min=0.45).raster
+    jcfg = dataclasses.replace(jcfg, bin_pairs=tcfg.bin_pairs, csr_tiers=tcfg.csr_tiers)
+    assert (len(tcfg.csr_tiers) >= 2) == (mesh_name == "mixed")
+    f = bank.faces.shape[1]
+    n_units = f // pack
+    tiers, capacity = tr.csr_budget(tcfg, n_units, N_FINE)
+    caps = np.repeat([s for _, s in tiers], np.diff([0] + [e for e, _ in tiers]))
+    assert len(caps) == n_units and capacity == tcfg.bin_pairs == int(caps.sum())
+    fu = np.tile(np.float32([-500.0, 5000.0, -500.0]), (1, f, 1))
+    fv = np.tile(np.float32([-500.0, -500.0, 5000.0]), (1, f, 1))
+    valid = np.ones((1, f), bool)
+    j_unit, _, _, j_dropped = (np.asarray(x) for x in jr.bin_faces_csr(
+        jnp.asarray(fu[0]), jnp.asarray(fv[0]), jnp.asarray(valid[0]), jcfg, th=16, tw=8))
+    assert j_unit.shape == (capacity,)
+    np.testing.assert_array_equal(np.bincount(j_unit[j_unit < n_units], minlength=n_units), caps)
+    assert int(j_dropped) == int((N_FINE - caps).sum())
+    t_unit = tr.bin_faces_csr(torch.from_numpy(fu), torch.from_numpy(fv), torch.from_numpy(valid), tcfg,
+                              th=16, tw=8)[0]
+    assert t_unit.shape == (1, capacity)
+
+
 def test_bin_faces_dense_matches_jax(rng):
     b, f = 2, 40
     fu = rng.uniform(-20, 148, (b, f, 3)).astype(np.float32)
@@ -353,6 +387,71 @@ def test_wrappers_dispatch_on_device():
                        torch.zeros(2, dtype=torch.int32, device="meta"),
                        torch.zeros((2, 2), dtype=torch.int32, device="meta"), 8, 16)
 
+
+def test_csr_segments_dispatch_on_device(rng):
+    """csr_segments on CPU tensors is bin_faces_csr (no binning launch
+    counted); the binning kernels' wrapper refuses any tensor off the card."""
+    b, f = 2, 64
+    fu = torch.from_numpy(rng.uniform(-20, 148, (b, f, 3)).astype(np.float32))
+    fv = torch.from_numpy(rng.uniform(-20, 116, (b, f, 3)).astype(np.float32))
+    valid = torch.from_numpy(rng.rand(b, f) > 0.2)
+    cfg = _cfgs(csr_pack=4)[1]
+    tk.reset_launch_counts()
+    got = tr.csr_segments(fu, fv, valid, cfg, th=16, tw=8)
+    for x, y in zip(got, tr.bin_faces_csr(fu, fv, valid, cfg, th=16, tw=8)):
+        assert torch.equal(x, y)
+    assert tk.csr_bin.launches == 0
+    tiers, capacity = tr.csr_budget(cfg, f // 4, N_FINE)
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            tk.csr_bin(fu.to(dev), fv.to(dev), valid.to(dev), tiers, capacity, 4, 16, 8, 96, 128)
+
+
+
+@pytest.mark.parametrize("kind", ["ape", "all"])
+def test_linemod_standin_banks_and_poses(kind):
+    """synth_data's LINEMOD stand-ins, whose banks the card's binning cases
+    and chip_smoke bin: each class at its diameter, the bank padded to 256
+    faces, and the budget regime each stands for (the ape's uniform 15
+    tiles a unit; the padded mixed bank's uniform fallback of 762, a budget
+    ~700x its real pairs); a refinement batch's poses: reproducible from the
+    seed, classes even, one depth in each 1/B slice of the range, centres
+    projected into the image's middle."""
+    from scipy.spatial import ConvexHull
+    from scipy.spatial.distance import pdist
+
+    from deepim_tpu_torch.engine.scene import LINEMOD_K
+    from deepim_tpu_torch.tools import synth_data as sd
+
+    bank = sd.linemod_standin_bank(kind)
+    n = 1 if kind == "ape" else 13
+    real = [20480] if kind == "ape" else [20880 if i % 2 == 0 else 5520 for i in range(n)]
+    assert bank["faces"].shape == (n, 20480 if kind == "ape" else 20992, 3)
+    np.testing.assert_array_equal(bank["face_valid"].sum(1), real)
+    for i in range(n):
+        v = bank["vertices"][i][:int(bank["faces"][i][bank["face_valid"][i]].max()) + 1]
+        span = pdist(v[ConvexHull(v).vertices].astype(np.float64)).max()
+        np.testing.assert_allclose(span, sd.LINEMOD_DIAMETERS_MM[i] / 1000.0, rtol=1e-5)
+    cfg = t_tune(TEngineConfig(raster=tr.RasterConfig(height=480, width=640)), bank, LINEMOD_K).raster
+    assert not cfg.csr_tiers and cfg.csr_pack == 4
+    assert cfg.bin_pairs == (76800 if kind == "ape" else 3998976)
+
+    z_range = (0.6, 1.0) if kind == "ape" else (0.6, 1.1)
+    cls, gt, pose0 = sd.linemod_refine_poses(32, n, 7, z_range)
+    again = sd.linemod_refine_poses(32, n, 7, z_range)
+    for x, y in zip((cls, gt, pose0), again):
+        np.testing.assert_array_equal(x, y)
+    assert cls.dtype == np.int64 and gt.dtype == pose0.dtype == np.float32
+    assert np.bincount(cls, minlength=n).max() - np.bincount(cls, minlength=n).min() <= 1
+    z = gt[:, 2, 3].astype(np.float64)
+    np.testing.assert_array_equal(np.sort(np.floor((z - z_range[0]) / (z_range[1] - z_range[0]) * 32)),
+                                  np.arange(32))
+    uv = gt[:, :, 3] @ LINEMOD_K.T
+    u, v = uv[:, 0] / uv[:, 2], uv[:, 1] / uv[:, 2]
+    assert (u > 199.99).all() and (u < 440.01).all() and (v > 149.99).all() and (v < 330.01).all()
+    r = pose0[:, :, :3]
+    np.testing.assert_allclose(r @ r.transpose(0, 2, 1), np.broadcast_to(np.eye(3), r.shape), atol=1e-5)
+    assert np.abs(pose0 - gt).max() > 0
 
 def test_cuda_required_unless_cpu_requested():
     if torch.cuda.is_available():
